@@ -1,5 +1,6 @@
 """Carry state across from :mod:`akbx`: its parameters, given as numpy
-arrays or plain values, become the port's tensors.
+arrays or plain values, become the port's tensors, on ``device`` or, by
+default, on the card (:func:`akbx_torch.default_device`).
 
 The caller flattens the JAX objects on its side (``np.asarray`` on each
 array, ``dataclasses.asdict`` on a spec); this module never sees jax.
@@ -10,12 +11,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from akbx_torch import device_of
 from akbx_torch.surfaces import Mirror
 from akbx_torch.systems import AKBSpec, AlignParams, OpticalSystem
+from akbx_torch.wave import WaveField
 
 
 def _f64(x, device) -> torch.Tensor:
-    return torch.tensor(np.asarray(x, dtype=np.float64), device=device)
+    return torch.tensor(np.asarray(x, dtype=np.float64),
+                        device=device_of(None, device))
 
 
 def align_params_from_numpy(vec26, device=None) -> AlignParams:
@@ -41,4 +45,13 @@ def system_from_numpy(fields: dict, device=None) -> OpticalSystem:
         mirrors, _f64(fields["s2f_middle"], device),
         _f64(fields["fan_h"], device), _f64(fields["fan_v"], device),
         _f64(fields["source"], device),
-        torch.tensor(np.asarray(fields["valid"], dtype=bool), device=device))
+        torch.tensor(np.asarray(fields["valid"], dtype=bool),
+                     device=device_of(None, device)))
+
+
+def wave_field_from_numpy(fields: dict, device=None) -> WaveField:
+    """A :class:`WaveField` from akbx's, as numpy arrays: ``points``,
+    ``re``, ``im``, ``ds`` and the ints ``n_h``, ``n_v``."""
+    return WaveField(*[_f64(fields[k], device)
+                       for k in ("points", "re", "im", "ds")],
+                     int(fields.get("n_h", 0)), int(fields.get("n_v", 0)))

@@ -76,7 +76,7 @@ __device__ __forceinline__ df cdf(const float* c, int k_hi, int k_lo) {
   return {c[k_hi], c[k_lo]};
 }
 
-// exact f64 -> (hi, lo) f32 split, as trace_kernel.py::_split64
+// exact f64 -> (hi, lo) f32 split, as akbx_torch/kernels/__init__.py::split64
 __device__ __forceinline__ df split64(double x) {
   float hi = __double2float_rn(x);
   float lo = __double2float_rn(__dsub_rn(x, (double)hi));

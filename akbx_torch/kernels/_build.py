@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-The sources in ``akbx_torch/csrc`` are compiled with ``nvcc`` into one
+Each ``.cu`` source in ``akbx_torch/csrc`` is compiled by its own
+``nvcc``, all started together, and the objects are linked into one
 shared library with a plain C interface, loaded with ``ctypes``.  The
 library lands in ``akbx_torch/_build/<hash>/``, keyed by a hash of the
 sources and flags, and is built at first use.  Never ``--use_fast_math``:
@@ -23,7 +24,7 @@ BUILD_ROOT = _PKG / "_build"
 LIB_NAME = "libakbx_torch.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-prec-div=true", "-prec-sqrt=true",
-              "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+              "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
@@ -33,6 +34,9 @@ _SIGNATURES = {
     # consts, n_planes, 6 inputs, n, 8 outputs, stream
     "akbx_detector": [_P, ctypes.c_int] + [_P] * 6 + [ctypes.c_longlong]
     + [_P] * 8 + [_P],
+    # tgt, n, src, w, m, k_pair, out, stream
+    "akbx_huygens": [_P, ctypes.c_longlong, _P, _P, ctypes.c_longlong, _P,
+                     _P, _P],
 }
 
 
@@ -61,22 +65,36 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile the kernels unless this source hash is built; returns the
-    library path.  The compiler's report (registers, spills) is kept in
+    library path.  The compilers' reports (registers, spills) are kept in
     ``build.log`` beside it."""
     out_dir = BUILD_ROOT / source_hash()
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in _sources() if p.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
+    nvcc, tag = _nvcc(), os.getpid()
+    jobs = []
+    for src in (p for p in _sources() if p.suffix == ".cu"):
+        obj = out_dir / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], False
+    for cmd, _, proc in jobs:
+        log.append(" ".join(cmd) + "\n" + proc.communicate()[0])
+        failed |= proc.returncode != 0
+    tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *[str(o) for _, o, _ in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        failed = proc.returncode != 0
+    (out_dir / "build.log").write_text("".join(log))
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "".join(log))
     os.replace(tmp, lib)
     return lib
 

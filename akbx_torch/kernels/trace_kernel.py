@@ -18,16 +18,13 @@ which the double-word Newton step corrects.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from akbx_torch.core import use_kernel
 from akbx_torch.core.precision import (DF, df_add, df_mul, df_sqrt,
                                        fast_two_sum, two_prod)
-
-F32 = torch.float32
-F64 = torch.float64
+from akbx_torch.kernels import (F32, F64, check, ptr, raise_on, split64,
+                                stream)
 
 # constants-row layout of K1 (one row of 64 f32 per mirror); the CUDA
 # kernel reads the same offsets (csrc/trace_kernel.cu)
@@ -56,32 +53,25 @@ _N_DCONST = 32
 MAX_PLANES = 4
 
 
-def _split64(x64: torch.Tensor):
-    """Exact split of f64 values into f32 (hi, lo) pairs."""
-    hi = x64.to(F32)
-    lo = (x64 - hi.to(F64)).to(F32)
-    return hi, lo
-
-
 def pack_consts(Ms, gCs, gAs, Ds, Dns, Ts, A_noms, Bp_noms, rhos,
                 branches, bvecs) -> torch.Tensor:
     """(n_mirr, 64) f32 table of hi/lo-split f64 chief constants."""
     n = Ms.shape[0]
     rows = torch.zeros((n, _N_CONST), dtype=F32, device=Ms.device)
-    Mh, Ml = _split64(Ms.reshape(n, 9))
+    Mh, Ml = split64(Ms.reshape(n, 9))
     rows[:, _M_HI:_M_HI + 9] = Mh
     rows[:, _M_LO:_M_LO + 9] = Ml
     for col_hi, col_lo, v in ((_GC_HI, _GC_LO, gCs), (_GA_HI, _GA_LO, gAs),
                               (_D_HI, _D_LO, Ds), (_DN_HI, _DN_LO, Dns),
                               (_BV_HI, _BV_LO, bvecs)):
-        h, low = _split64(v)
+        h, low = split64(v)
         rows[:, col_hi:col_hi + 3] = h
         rows[:, col_lo:col_lo + 3] = low
     for col_hi, col_lo, v in ((_T_HI, _T_LO, Ts), (_A_HI, _A_LO, A_noms),
                               (_BP_HI, _BP_LO, Bp_noms),
                               (_RHO_HI, _RHO_LO, rhos),
                               (_T2_HI, _T2_LO, Ts * Ts)):
-        h, low = _split64(v)
+        h, low = split64(v)
         rows[:, col_hi] = h
         rows[:, col_lo] = low
     rows[:, _BRANCH] = branches.to(F32)
@@ -91,15 +81,15 @@ def pack_consts(Ms, gCs, gAs, Ds, Dns, Ts, A_noms, Bp_noms, rhos,
 def pack_det_consts(R, D4r, t_c, L) -> torch.Tensor:
     """(1, 32) f32 table of hi/lo-split f64 detector-stage constants."""
     row = torch.zeros((1, _N_DCONST), dtype=F32, device=R.device)
-    Rh, Rl = _split64(R.reshape(9))
+    Rh, Rl = split64(R.reshape(9))
     row[0, _DR_HI:_DR_HI + 9] = Rh
     row[0, _DR_LO:_DR_LO + 9] = Rl
-    Dh, Dl = _split64(D4r)
+    Dh, Dl = split64(D4r)
     row[0, _DD4_HI:_DD4_HI + 3] = Dh
     row[0, _DD4_LO:_DD4_LO + 3] = Dl
     for col_hi, col_lo, v in ((_DTC_HI, _DTC_LO, t_c), (_DL_HI, _DL_LO, L),
                               (_DL2_HI, _DL2_LO, L * L)):
-        h, low = _split64(v)
+        h, low = split64(v)
         row[0, col_hi] = h
         row[0, col_lo] = low
     return row
@@ -231,8 +221,8 @@ def trace_deviation_reference(consts, dp64, dd64, n_mirr: int):
     valid)`` shaped (3*n_mirr, N) / (n_mirr, N) / (N,) / (1, N); ``dsum``
     is the cumulative leg-length deviation up to the last mirror.
     """
-    dph, dpl = _split64(dp64)
-    ddh, ddl = _split64(dd64)
+    dph, dpl = split64(dp64)
+    ddh, ddl = split64(dd64)
     dp = [DF(dph[r], dpl[r]) for r in range(3)]
     dd = [DF(ddh[r], ddl[r]) for r in range(3)]
     rows = [consts[m] for m in range(n_mirr)]
@@ -331,23 +321,6 @@ def detector_reference(consts, dq_hi, dq_lo, dd_hi, dd_lo, dsum_hi,
 
 # --- dispatching wrappers -------------------------------------------------
 
-def _check(t: torch.Tensor, dtype, shape, name: str):
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
-            or not t.is_contiguous():
-        raise ValueError(f"{name}: want contiguous {dtype} {tuple(shape)}, "
-                         f"got {t.dtype} {tuple(t.shape)} "
-                         f"contiguous={t.is_contiguous()}")
-
-
-def _ptr(t: torch.Tensor):
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _raise_on(rc: int, name: str):
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
-
-
 def trace_deviation(consts, dp64, dd64, n_mirr: int):
     """K1: the twin on a CPU tensor, the CUDA kernel on a CUDA tensor;
     contract of :func:`trace_deviation_reference`."""
@@ -358,9 +331,9 @@ def trace_deviation(consts, dp64, dd64, n_mirr: int):
     n = dp64.shape[1]
     if not 1 <= n_mirr <= MAX_MIRRORS:
         raise ValueError(f"n_mirr={n_mirr} outside 1..{MAX_MIRRORS}")
-    _check(consts, F32, (n_mirr, _N_CONST), "consts")
-    _check(dp64, F64, (3, n), "dp64")
-    _check(dd64, F64, (3, n), "dd64")
+    check(consts, F32, (n_mirr, _N_CONST), "consts")
+    check(dp64, F64, (3, n), "dp64")
+    check(dd64, F64, (3, n), "dd64")
     lib = _build.load()
 
     def empty(*shape):
@@ -372,11 +345,9 @@ def trace_deviation(consts, dp64, dd64, n_mirr: int):
             empty(1, n))
     if n:
         rc = lib.akbx_trace_deviation(
-            _ptr(consts), n_mirr, _ptr(dp64), _ptr(dd64), n,
-            *[_ptr(o) for o in outs],
-            ctypes.c_void_p(torch.cuda.current_stream(dp64.device)
-                            .cuda_stream))
-        _raise_on(rc, "trace_deviation")
+            ptr(consts), n_mirr, ptr(dp64), ptr(dd64), n,
+            *[ptr(o) for o in outs], stream(dp64))
+        raise_on(rc, "trace_deviation")
         trace_deviation.launches += 1
     return outs
 
@@ -398,11 +369,11 @@ def detector(consts, dq_hi, dq_lo, dd_hi, dd_lo, dsum_hi, dsum_lo):
     if not 1 <= n_planes <= MAX_PLANES:
         raise ValueError(f"{n_planes} detector planes outside "
                          f"1..{MAX_PLANES}")
-    _check(consts, F32, (n_planes, _N_DCONST), "consts")
+    check(consts, F32, (n_planes, _N_DCONST), "consts")
     for name, t in zip(("dq_hi", "dq_lo", "dd_hi", "dd_lo"), ins[:4]):
-        _check(t, F32, (3, n), name)
-    _check(dsum_hi, F32, (n,), "dsum_hi")
-    _check(dsum_lo, F32, (n,), "dsum_lo")
+        check(t, F32, (3, n), name)
+    check(dsum_hi, F32, (n,), "dsum_hi")
+    check(dsum_lo, F32, (n,), "dsum_lo")
     lib = _build.load()
 
     def empty(*shape):
@@ -413,11 +384,9 @@ def detector(consts, dq_hi, dq_lo, dd_hi, dd_lo, dsum_hi, dsum_lo):
             empty(n_planes, n))
     if n:
         rc = lib.akbx_detector(
-            _ptr(consts), n_planes, *[_ptr(t) for t in ins], n,
-            *[_ptr(o) for o in outs],
-            ctypes.c_void_p(torch.cuda.current_stream(dq_hi.device)
-                            .cuda_stream))
-        _raise_on(rc, "detector")
+            ptr(consts), n_planes, *[ptr(t) for t in ins], n,
+            *[ptr(o) for o in outs], stream(dq_hi))
+        raise_on(rc, "detector")
         detector.launches += 1
     return outs
 

@@ -12,6 +12,7 @@ from typing import NamedTuple
 
 import torch
 
+from akbx_torch import device_of
 from akbx_torch.core import geometry as geo
 
 F64 = torch.float64
@@ -43,6 +44,7 @@ def make_mirror(coeffs: torch.Tensor, branch=+1.0, center=None, axes=None,
 
 
 def _conic(a, b, plane: str, sign: float, device) -> torch.Tensor:
+    device = device_of(a, device)
     a = torch.as_tensor(a, dtype=F64, device=device)
     b = torch.as_tensor(b, dtype=F64, device=device)
     z = torch.zeros((), dtype=F64, device=device)
@@ -58,7 +60,8 @@ def _conic(a, b, plane: str, sign: float, device) -> torch.Tensor:
 
 def ellipse_coeffs(a, b, plane: str, device=None) -> torch.Tensor:
     """Canonical ellipse x^2/a^2 + w^2/b^2 = 1, w = z for a V mirror
-    ('xz'), w = y for an H mirror ('xy')."""
+    ('xz'), w = y for an H mirror ('xy').  On ``device``, else on ``a``'s
+    if it is a tensor, else on the card."""
     return _conic(a, b, plane, 1.0, device)
 
 

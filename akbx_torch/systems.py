@@ -17,7 +17,7 @@ from typing import NamedTuple
 
 import torch
 
-from akbx_torch import design
+from akbx_torch import design, device_of
 from akbx_torch.core import geometry as geo
 from akbx_torch.core import quadric_df as qdf
 from akbx_torch.surfaces import (ellipse_coeffs, hyperbola_coeffs,
@@ -39,7 +39,9 @@ class AlignParams(NamedTuple):
 
     @staticmethod
     def from_vector(v, device=None) -> "AlignParams":
-        v = torch.as_tensor(v, dtype=F64, device=device)
+        """From a 26-vector; a tensor keeps its device, anything else goes
+        to ``device`` or the card (:func:`akbx_torch.default_device`)."""
+        v = torch.as_tensor(v, dtype=F64, device=device_of(v, device))
         return AlignParams(v[0], v[1], v[2:8], v[8:14], v[14:20], v[20:26])
 
     def to_vector(self) -> torch.Tensor:
@@ -49,7 +51,7 @@ class AlignParams(NamedTuple):
     @staticmethod
     def zeros(device=None) -> "AlignParams":
         return AlignParams.from_vector(
-            torch.zeros(26, dtype=F64, device=device))
+            torch.zeros(26, dtype=F64, device=device_of(None, device)))
 
 
 @dataclasses.dataclass(frozen=True)

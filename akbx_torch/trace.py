@@ -1,6 +1,6 @@
 """Batched sequential ray tracing through a mirror chain (port of
-:mod:`akbx.trace`: the f64 engine and the ``precision="pallas"`` fast
-engine, with ``exit_pupil_uniform=False``).
+:mod:`akbx.trace`: the f64 engine, with and without the exit-pupil
+re-fan, and the ``precision="pallas"`` fast engine without it).
 
 Rays are ``(3, N)`` f64 tensors; invalid rays carry a boolean mask.  The
 fast engine traces one chief ray in f64 and every other ray as its exact
@@ -409,6 +409,58 @@ def run_fast(system: OpticalSystem, rays, origins, det_x, det_x2,
     }
 
 
+def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor):
+    """``jnp.interp(x, xp, fp)``: piecewise-linear through increasing
+    ``xp``, clamped to ``fp[0]`` / ``fp[-1]`` outside, the same formula
+    (searchsorted on the right, a zero-width interval takes its left
+    value)."""
+    i = torch.clamp(torch.searchsorted(xp.contiguous(), x.contiguous(),
+                                       right=True), 1, xp.shape[0] - 1)
+    df = fp[i] - fp[i - 1]
+    dx = xp[i] - xp[i - 1]
+    delta = x - xp[i - 1]
+    # np.spacing(eps), which is eps**2: eps is a power of two
+    dx0 = torch.abs(dx) <= torch.finfo(xp.dtype).eps ** 2
+    f = torch.where(dx0, fp[i - 1],
+                    fp[i - 1] + (delta / torch.where(dx0, 1.0, dx)) * df)
+    f = torch.where(x < xp[0], fp[0], f)
+    return torch.where(x > xp[-1], fp[-1], f)
+
+
+def exit_pupil_uniform_angles(result: TraceResult, rand_p0h, rand_p0v,
+                              n_h: int, n_v: int, stage: int = -1):
+    """Re-derive source angles so *exit* angles are equally spaced.
+
+    The exit angles of the center row/column map exit -> input angle by
+    :func:`interp`, and the fan is rebuilt on equally spaced exit angles.
+    ``stage`` selects which bounce's direction field to uniformize on:
+    -1 (default) = final exit angles; 1 = after the first mirror.
+    """
+    angle = result.directions[stage]
+    angle_h = torch.atan(angle[1] / angle[0])
+    angle_v = torch.atan(angle[2] / angle[0])
+    dev = angle.device
+
+    # center column: iH = (n_h-1)//2, iV varies
+    center_col = (torch.arange(n_v, device=dev) * n_h
+                  + round((n_h - 1) / 2))
+    # center row: iV = (n_v-1)//2, iH varies (the reference's index rule,
+    # Python round included)
+    center_row = (round(n_v * (n_v - 1) / 2) + torch.arange(n_h, device=dev)
+                  if n_h == n_v
+                  else ((n_v - 1) // 2) * n_h + torch.arange(n_h, device=dev))
+
+    av = angle_v[center_col]
+    ah = angle_h[center_row]
+
+    def remap(a_exit, a_in, n):
+        eq = fan_angles(torch.stack([a_exit[0], a_exit[-1]]), n)  # linspace
+        sign = torch.where(a_exit[-1] >= a_exit[0], 1.0, -1.0).to(F64)
+        return interp(sign * eq, sign * a_exit, a_in)
+
+    return remap(ah, rand_p0h, n_h), remap(av, rand_p0v, n_v)
+
+
 def detector_points(result: TraceResult, x_plane) -> torch.Tensor:
     """Intersect exit rays with the plane x = x_plane."""
     return geo.plane_intersect(geo.detector_plane(x_plane), result.exit_rays,
@@ -483,15 +535,17 @@ def run(system: OpticalSystem, n_h: int, n_v: int, defocus,
     """Full engine pass: fan -> trace -> tilt removal -> detector planes
     -> OPL -> wavefront, on the device of ``system``.
 
-    Ported: ``precision="pallas"`` (the deviation kernels) and
-    ``precision="f64"``, both with ``exit_pupil_uniform=False``.  Every
-    other combination raises ``NotImplementedError`` naming its ROADMAP
-    item.  ``uniform_stage`` only applies to the exit-pupil re-fan.
+    Ported: ``precision="pallas"`` (the deviation kernels) with
+    ``exit_pupil_uniform=False``, and ``precision="f64"`` with or without
+    the exit-pupil re-fan (trace, re-derive the source angles on the
+    ``uniform_stage`` directions, re-trace).  Every other combination
+    raises ``NotImplementedError`` naming its ROADMAP item.
     """
-    if exit_pupil_uniform:
+    if exit_pupil_uniform and precision == "pallas":
         raise NotImplementedError(
-            "exit_pupil_uniform=True is not ported yet (ROADMAP Queue 1, "
-            "item 8); pass exit_pupil_uniform=False")
+            "exit_pupil_uniform=True with precision='pallas' needs "
+            "trace_pallas, which is not ported yet (ROADMAP Queue 1, "
+            "item 8); use precision='f64' or exit_pupil_uniform=False")
     if ray_sharding is not None:
         raise NotImplementedError(
             "ray sharding is not ported yet (ROADMAP Queue 1, item 14)")
@@ -522,6 +576,10 @@ def run(system: OpticalSystem, n_h: int, n_v: int, defocus,
                             out["w32"], out["ddet32"], out["w32_2"])
 
     result = trace(system, rays, src)
+    if exit_pupil_uniform:
+        rand_p0h, rand_p0v = exit_pupil_uniform_angles(
+            result, rand_p0h, rand_p0v, n_h, n_v, stage=uniform_stage)
+        result = trace(system, ray_fan(rand_p0h, rand_p0v), src)
     detcenter = detector_points(result, det_x)
     if tilt_correction:
         rays2, pts2, theta_y, theta_z, focus_apprx = tilt_correct(

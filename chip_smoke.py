@@ -19,31 +19,168 @@ Phases, one printed line or more each:
   6. times from CUDA events (median of 10 after warm-up): the forward
      step; its split by stage, from events at the stage boundaries of the
      same step; and each kernel alone beside its twin, on the inputs the
-     main path gave it.
-Then a JSON line of the kernels, and as the last line
+     main path gave it;
+  7. K3 (the Huygens contraction) against its twin on the card at ragged
+     target x source counts and at 2,048 x 66,049, at 13.5 nm and 0.135 nm;
+  8. the wave path at a 257x257 fan: seeded misalignment -> autofocus ->
+     f64 trace with the exit-pupil re-fan -> wave handoff directory ->
+     load -> propagate_stages (source, M1-M4, Image) + the defocus grid
+     from M4 on K3; it must launch K3 6 times.  Each stage against the
+     port's f64 path on 2,048 of its targets; the CLI's propagate twice
+     with a stage cache (K3 6 times, then once); the gradient through K3
+     against the f64 path's at 512 x 384, on the card and through the
+     twin on the CPU;
+  9. times: each stage of the wave chain and the chain (median of 3), the
+     handoff, K3 alone beside its twin and the f64 path, peak memory; and
+     K3 against its twin on the full M4 -> Image stage.
+Then a JSON line of the kernels, each with its bound: the larger of its
+bytes over 3.35e12 B/s and its f32 operations over 3.35e13 op/s (the H100
+SXM's 67 TFLOP/s f32 counts an FMA as two operations).  The operations
+are counted on each twin, with every two_prod at its cost with an FMA (a
+multiply and an FMA), which gives the same exact product and error term;
+the kernels, built with -fmad=false, run the Dekker form instead, and
+their own count is printed beside the bound.  As the last line
 {"ok": true, "device": {...}}.  Any failure raises: the exit code is not
 0 and the last line is not printed.
 """
 
+import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 N_SIDE = 2048           # the bench's fan: 4,194,304 rays
 N_RAGGED = 1_000_003
 SEED = 0
 KERNEL_REL = 1e-11      # kernel vs twin, per output, of the output's scale
 REPS = 10
+W_SIDE = 257            # the wave path's fan: 66,049 points per surface
+DEVICE = "cuda"
+EUV, HARD = 13.5e-9, 0.135e-9
+HUYGENS_REL = 1e-6      # K3 vs twin, of the field's scale (sum order only)
+FIELD_REL = 1e-5        # K3 vs the f64 path, akbx's bar (test_kernels.py)
+GRAD_REL = 2e-5         # gradient through K3 vs the f64 path's, akbx's bar
+# the targets gradient at 512 x 384: akbx's own kernel reads 4.6e-5 of the
+# scale there (tests/test_torch_wave.py::test_targets_grad_at_512x384_...)
+TARGETS_GRAD_REL = 5e-5
+SOURCE_STAGE_REL = 2e-3  # source -> M1: df32 with the source 145 m away
+SUBSET = 2048           # targets of each stage held against the f64 path
+HBM_BPS = 3.35e12       # H100 SXM, bytes/s
+F32_OPS = 3.35e13       # H100 SXM f32 operations/s, an FMA counted once
+
+# aten ops that move or make data rather than compute on it
+_MOVES = {"view", "_unsafe_view", "reshape", "expand", "select", "slice",
+          "unsqueeze", "squeeze", "t", "transpose", "permute", "clone",
+          "copy_", "detach", "alias", "lift_fresh", "lift_fresh_copy",
+          "zeros_like", "ones_like", "full_like", "empty_like", "zeros",
+          "ones", "full", "empty", "new_zeros", "scalar_tensor", "fill_",
+          "zero_", "stack", "cat", "index", "index_put_", "as_strided",
+          "unbind", "split", "_local_scalar_dense", "empty_strided",
+          # sign changes fold into the operands of the next instruction
+          "neg", "abs"}
+_REDUCTIONS = {"sum", "mean", "amax", "amin"}
+
+
+class OpCount(TorchDispatchMode):
+    """Counts the operations of the ops run under it: one per output
+    element of an elementwise op, one per input element of a reduction;
+    none for data movement and sign changes, nor while ``paused``.  A sin,
+    a division or a square root counts as one, so the count is a floor."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = 0
+        self.paused = False
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        name = func.overloadpacket.__name__
+        if self.paused:
+            pass
+        elif name in _REDUCTIONS:
+            self.ops += args[0].numel()
+        elif name not in _MOVES and isinstance(out, torch.Tensor):
+            self.ops += out.numel()
+        return out
+
+
+@contextlib.contextmanager
+def fma_two_prods(counter):
+    """Counts every ``two_prod`` of akbx_torch at its cost with an FMA:
+    p = a b and e = fma(a, b, -p), two operations per element."""
+    from akbx_torch.core import precision
+
+    dekker = precision.two_prod
+
+    def two_prod(a, b):
+        counter.paused = True
+        try:
+            out = dekker(a, b)
+        finally:
+            counter.paused = False
+        counter.ops += 2 * out.hi.numel()
+        return out
+
+    mods = [m for k, m in list(sys.modules.items())
+            if k.startswith("akbx_torch") and getattr(m, "two_prod", None)
+            is dekker]
+    for m in mods:
+        m.two_prod = two_prod
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.two_prod = dekker
+
+
+def count_ops(fn, *args):
+    """(floor, own): the operations of ``fn(*args)`` on CPU copies of
+    ``args``, with every two_prod at its FMA cost, and as the twin runs
+    them (the Dekker two_prod, as the kernels do)."""
+    cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+    counts = []
+    for fma in (True, False):
+        with OpCount() as c, (fma_two_prods(c) if fma
+                              else contextlib.nullcontext()):
+            fn(*cpu)
+        counts.append(c.ops)
+    return tuple(counts)
+
+
+def bound(n_bytes, n_ops):
+    """(bound_ms, bound_by): the least time for the work on this card."""
+    t_bytes, t_ops = n_bytes / HBM_BPS, n_ops / F32_OPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def check(cond, what):
     if not cond:
         raise RuntimeError(f"chip_smoke: {what}")
+
+
+def timed_once(fn):
+    """(milliseconds between CUDA events, result) of one call of ``fn``."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop), out
 
 
 def time_ms(fn, reps=REPS, warmup=2, setup=None):
@@ -131,12 +268,307 @@ def compare_outputs(kernel_out, twin_out, valid_index=None):
     return worst_ratio, worst_abs
 
 
+def field_err(got, want):
+    """(max |got - want|, that over max |want|) of two (re, im) fields."""
+    g, w = torch.complex(*got), torch.complex(*want)
+    err = float((g - w).abs().max()) if w.numel() else 0.0
+    scale = float(w.abs().max()) if w.numel() else 0.0
+    check(np.isfinite(err), "non-finite field")
+    return err, err / scale if scale else err
+
+
+def huygens_cloud(dev, n, m, seed):
+    """A seeded field of ``m`` sources near 145 m and ``n`` targets near
+    146 m (akbx's kernel tests, tests/test_kernels.py::_mk)."""
+    from akbx_torch import wave
+
+    rng = np.random.default_rng(seed)
+    src = np.array([145.0, 0.02, 0.0])[:, None] + rng.normal(size=(3, m)) * 0.05
+    tgt = np.array([146.0, 0.05, 0.01])[:, None] + rng.normal(size=(3, n)) * 0.02
+    u = rng.normal(size=m) + 1j * rng.normal(size=m)
+    ds = np.abs(rng.normal(size=m)) * 1e-8
+    return (wave.WaveField.from_complex(src, u, ds, device=dev),
+            torch.tensor(tgt, device=dev))
+
+
+def k3_against_twin(hk, args, label, phase, bitwise=False):
+    """K3 and its twin on the same arguments; checks HUYGENS_REL (and bit
+    equality with one source per target sum).  Returns max |err|."""
+    k = hk.huygens(*args)
+    torch.cuda.synchronize()
+    t = hk.huygens_reference(*args)
+    err, rel = field_err(k, t)
+    same = torch.equal(k[0], t[0]) and torch.equal(k[1], t[1])
+    print(f"[{phase}] K3 vs twin {label}: max |err| {err:.3e}, of the field "
+          f"{rel:.3e} (bar {HUYGENS_REL}); bit-identical {same}", flush=True)
+    check(rel <= HUYGENS_REL, f"K3 disagrees with its twin ({label})")
+    check(same or not bitwise, f"K3 not bit-identical to its twin ({label})")
+    return err
+
+
+def phase7_k3(dev, hk):
+    """K3 against its twin at ragged counts and at 2,048 x 66,049."""
+    worst = 0.0
+    for lam in (EUV, HARD):
+        for n, m in ((1, 1), (255, 257), (1025, 4099), (SUBSET, W_SIDE ** 2),
+                     (100_003, 1)):
+            src, tgt = huygens_cloud(dev, n, m, n + m)
+            worst = max(worst, k3_against_twin(
+                hk, hk.kernel_args(src, tgt, lam),
+                f"N={n} x M={m} at {lam * 1e9:g} nm", 7, bitwise=m == 1))
+    # K3's work does not depend on the data: a synthetic full stage
+    n = W_SIDE ** 2
+    src, tgt = huygens_cloud(dev, n, n, 1)
+    args = hk.kernel_args(src, tgt, EUV)
+    print(f"[7] K3 on a synthetic {n} x {n} cloud: "
+          f"{time_ms(lambda: hk.huygens(*args), reps=3, warmup=1):.3f} ms "
+          "(median of 3)", flush=True)
+    return worst
+
+
+def reset_counts(tk, hk):
+    tk.trace_deviation.launches = 0
+    tk.detector.launches = 0
+    hk.huygens.launches = 0
+
+
+def counts(tk, hk):
+    return {"K1": tk.trace_deviation.launches, "K2": tk.detector.launches,
+            "K3": hk.huygens.launches}
+
+
+def wave_stages(data):
+    """The CLI's stage list of a handoff directory: M1..M4 with their dS,
+    then the image grid."""
+    stages = [{"points": data[f"M{i}"][:3], "ds": data[f"M{i}"][3],
+               "name": f"M{i}"} for i in range(1, 5)]
+    return stages + [{"points": data["gridImage"], "name": "Image"}]
+
+
+def phase8_wave(dev, vec, base, tk, hk):
+    """The wave path at W_SIDE x W_SIDE, its checks, and what phase 9
+    times.  ``base``: a scratch directory."""
+    import contextlib
+    import io as _io
+
+    from akbx_torch import align, cli, export, io, trace, wave
+    from akbx_torch.systems import (AlignParams, WOLTER_3_1_DEFAULT,
+                                    build_wolter_3_1)
+
+    def build(p):
+        return build_wolter_3_1(WOLTER_3_1_DEFAULT, p)
+
+    def handoff():
+        p = align.auto_focus(build, AlignParams.from_vector(vec), n=21,
+                             iters=5)
+        s = build(p)
+        res = trace.run(s, W_SIDE, W_SIDE, defocus=p.defocus,
+                        defocus_wave=1e-3)
+        d = io.run_directory(base, "akb_wave")
+        export.wave_handoff(d, s, res, W_SIDE, W_SIDE, defocus_for_wave=1e-3)
+        return d, p, res
+
+    def chain(data):
+        src = wave.point_source(tuple(data["source"]), device=dev)
+        fields = wave.propagate_stages(src, wave_stages(data), EUV)
+        defocus = wave.propagate_field(fields[-2], data["gridDefocus"], EUV)
+        return src, fields, defocus
+
+    reset_counts(tk, hk)
+    d, p, res = handoff()
+    data = io.load_wave_data(d)
+    src, fields, defocus = chain(data)
+    torch.cuda.synchronize()
+    launched = counts(tk, hk)
+    check(launched == {"K1": 0, "K2": 0, "K3": 6},
+          f"wave path launched {launched}, want K3 6 times")
+    n_pts = W_SIDE ** 2
+    outs = fields + [defocus]
+    names = ["M1", "M2", "M3", "M4", "Image", "Defocus"]
+    for name, f in zip(names, outs):
+        check(f.n == n_pts and bool(torch.isfinite(f.re).all())
+              and bool(torch.isfinite(f.im).all()), f"{name} field")
+    inten = fields[4].intensity
+    print(f"[8] wave path {W_SIDE}x{W_SIDE}: autofocus defocus "
+          f"{float(p.defocus):.9e} m, astigH {float(p.astig_h):.9e} m; "
+          f"valid rays {int(res.valid.sum())}/{n_pts}; handoff {d}; "
+          f"launches {launched}; Image peak intensity "
+          f"{float(inten.max()):.6e}", flush=True)
+
+    # each stage against the f64 path on SUBSET of its targets, from the
+    # same (K3-computed) field the stage propagated
+    rng = np.random.default_rng(SEED)
+    inputs = [src] + fields[:4] + [fields[3]]
+    errs = {}
+    for name, fin, fout in zip(names, inputs, outs):
+        idx = torch.tensor(np.sort(rng.choice(n_pts, SUBSET, replace=False)),
+                           device=dev)
+        x = wave.propagate(fin, fout.points[:, idx], EUV, backend="xla",
+                           chunk=256)
+        errs[name] = field_err((fout.re[idx], fout.im[idx]), x)[1]
+    print(f"[8] each stage vs the f64 path on {SUBSET} targets (of the "
+          "field): "
+          + "; ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (bars: M1 {SOURCE_STAGE_REL}, the source 145 m from the "
+          f"stage's centroid; the others {FIELD_REL})", flush=True)
+    check(errs["M1"] <= SOURCE_STAGE_REL
+          and max(v for k, v in errs.items() if k != "M1") <= FIELD_REL,
+          "a stage of the wave path misses its bar against the f64 path")
+
+    # K3 vs its twin at the handoff's shapes: 2048 image targets, all M4
+    img_idx = torch.tensor(np.sort(rng.choice(n_pts, SUBSET, replace=False)),
+                           device=dev)
+    sub_pts = fields[4].points[:, img_idx]
+    sub_args = hk.kernel_args(fields[3], sub_pts, EUV)
+    handoff_err = k3_against_twin(hk, sub_args, f"handoff M4 -> {SUBSET} "
+                                  f"Image targets ({n_pts} sources)", 8)
+
+    # the CLI's propagate, twice, with the stage cache
+    out = os.path.join(base, "propagate")
+    intens = []
+    for want in (6, 1):
+        reset_counts(tk, hk)
+        buf = _io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["propagate", d, "--out", out, "--device", str(dev)])
+        torch.cuda.synchronize()
+        got = hk.huygens.launches
+        summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+        print(f"[8] cli propagate (cache in {out}): rc {rc}, K3 launches "
+              f"{got} (want {want}); {summary}", flush=True)
+        check(rc == 0 and got == want, "cli propagate launches")
+        intens.append(np.load(os.path.join(out, "intensity_Image.npy")))
+    check(np.array_equal(intens[0], intens[1]),
+          "the cached rerun's intensity_Image.npy differs")
+    print(f"[8] cached rerun: intensity_Image.npy identical; vs the "
+          f"chain's Image intensity max |diff| "
+          f"{float(np.abs(intens[0] - inten.cpu().numpy()).max()):.3e}",
+          flush=True)
+
+    # the gradient through K3 against the f64 path's, 512 x 384; the same
+    # through the twin on the CPU
+    for where in (dev, torch.device("cpu")):
+        gsrc, gtgt = huygens_cloud(where, 384, 512, 7)
+        grads = {}
+        for backend in ("pallas", "xla"):
+            leaves = [x.detach().clone().requires_grad_(True)
+                      for x in (gsrc.re, gsrc.im, gsrc.ds, gsrc.points, gtgt)]
+            re, im = wave.propagate(wave.WaveField(leaves[3], *leaves[:3]),
+                                    leaves[4], EUV, backend=backend)
+            torch.sum(re ** 2 + im ** 2).backward()
+            grads[backend] = [x.grad for x in leaves]
+        g_err = {}
+        for name, a, b in zip(("re", "im", "ds", "points", "targets"),
+                              grads["pallas"], grads["xla"]):
+            check(bool(torch.isfinite(a).all()), f"non-finite gradient {name}")
+            g_err[name] = float((a - b).abs().max() / b.abs().max())
+        print(f"[8] gradient through {'K3' if where == dev else 'the twin'} "
+              f"({where.type}) vs the f64 path, 512 x 384, of each "
+              "gradient's scale: " + "; ".join(f"{k} {v:.3e}"
+                                               for k, v in g_err.items())
+              + f" (bars {GRAD_REL}; targets {TARGETS_GRAD_REL}, as akbx's "
+              "own kernel: Re(conj(u) du/dt) cancels its leading -ik|u|^2 "
+              "term)", flush=True)
+        check(max(g_err[k] for k in ("re", "im", "ds", "points")) <= GRAD_REL
+              and g_err["targets"] <= TARGETS_GRAD_REL, "gradient through K3")
+    return {"data": data, "handoff": handoff, "chain": chain,
+            "fields": fields, "src": src, "sub_args": sub_args,
+            "sub_pts": sub_pts, "launches": launched["K3"],
+            "handoff_err": handoff_err}
+
+
+def phase9_times(dev, w, hk):
+    """Times of the wave path (phase 8's ``w``)."""
+    from akbx_torch import wave
+
+    data, fields = w["data"], w["fields"]
+    stages = wave_stages(data) + [{"points": data["gridDefocus"],
+                                   "name": "Defocus", "from": 3}]
+    names = [st["name"] for st in stages]
+    per_stage = {k: [] for k in names}
+    for rep in range(4):
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True)]
+        ev[0].record()
+        done = []
+        for st in stages:
+            prev = done[st["from"]] if "from" in st else (
+                done[-1] if done else w["src"])
+            done.append(wave.propagate_field(prev, st["points"], EUV,
+                                             target_ds=st.get("ds")))
+            ev.append(torch.cuda.Event(enable_timing=True))
+            ev[-1].record()
+        ev[-1].synchronize()
+        if rep:
+            for k, a, b in zip(names, ev, ev[1:]):
+                per_stage[k].append(a.elapsed_time(b))
+    stage_ms = {k: statistics.median(v) for k, v in per_stage.items()}
+    n_src = {"M1": 1}
+    pairs = {k: n_src.get(k, W_SIDE ** 2) * W_SIDE ** 2 for k in names}
+
+    # the chain's own peak: above what earlier phases left allocated
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    chain_ms = time_ms(lambda: w["chain"](data), reps=3, warmup=1)
+    peak_gb = (torch.cuda.max_memory_allocated() - live) / 1e9
+
+    def handoff_s():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        w["handoff"]()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    handoff_ms = statistics.median(handoff_s() for _ in range(3)) * 1e3
+    print("[9] wave stages (ms, median of 3; pairs/s): " + "; ".join(
+        f"{k} {stage_ms[k]:.3f} ({pairs[k] / (stage_ms[k] / 1e3):.4e})"
+        for k in names), flush=True)
+    print(f"[9] wave chain (propagate_stages + defocus grid) {chain_ms:.3f} "
+          f"ms, median of 3; its peak memory {peak_gb:.3f} GB; handoff "
+          f"(autofocus + f64 trace with re-fan + export) {handoff_ms:.3f} "
+          f"ms, median of 3, host clock", flush=True)
+
+    sub = w["sub_args"]
+    k3_sub = time_ms(lambda: hk.huygens(*sub))
+    twin_sub = time_ms(lambda: hk.huygens_reference(*sub), reps=3, warmup=1)
+    f64_sub = time_ms(lambda: wave.propagate(fields[3], w["sub_pts"], EUV,
+                                             backend="xla", chunk=256),
+                      reps=3, warmup=1)
+    full = hk.kernel_args(fields[3], fields[4].points, EUV)
+    k3_full = time_ms(lambda: hk.huygens(*full))
+    k3_out = hk.huygens(*full)
+    twin_full, twin_out = timed_once(lambda: hk.huygens_reference(*full))
+    full_err, full_rel = field_err(k3_out, twin_out)
+    print(f"[9] K3 vs twin on the full M4 -> Image stage: max |err| "
+          f"{full_err:.3e}, of the field {full_rel:.3e} (bar {HUYGENS_REL})",
+          flush=True)
+    check(full_rel <= HUYGENS_REL, "K3 disagrees with its twin (full stage)")
+    n_full = full[0].shape[1] * full[1].shape[1]
+    ops_pair, own_pair = count_ops(hk.huygens_reference, full[0][:, :1],
+                                   full[1][:, :1], full[2][:, :1], full[3])
+    # each input read once; the output, (2, N) f32, written once
+    bound_ms, bound_by = bound(nbytes(*full) + 8 * full[0].shape[1],
+                               ops_pair * n_full)
+    print(f"[9] K3 on {SUBSET} x {W_SIDE ** 2} (M4 -> Image subset): kernel "
+          f"{k3_sub:.3f} ms (median of {REPS}), twin {twin_sub:.3f} ms and "
+          f"f64 path (chunk 256) {f64_sub:.3f} ms (median of 3)", flush=True)
+    print(f"[9] K3 on the M4 -> Image stage ({W_SIDE ** 2} x {W_SIDE ** 2} = "
+          f"{n_full} pairs): kernel {k3_full:.3f} ms (median of {REPS}, "
+          f"{n_full / (k3_full / 1e3):.4e} pairs/s), twin {twin_full:.3f} ms "
+          f"(one run); {ops_pair} f32 operations per pair with FMA two_prods "
+          f"({own_pair} as the kernel runs them) -> bound {bound_ms:.3f} ms "
+          f"({bound_by}), {bound_ms / k3_full:.3f} of it", flush=True)
+    return {"ms": k3_full, "plain_ms": twin_full, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": full_err}
+
+
 def main():
     # --- 1. the card -----------------------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     from akbx_torch import trace
     from akbx_torch.kernels import _build
+    from akbx_torch.kernels import huygens as hk
     from akbx_torch.kernels import trace_kernel as tk
     from akbx_torch.systems import (AlignParams, WOLTER_3_1_DEFAULT,
                                     build_wolter_3_1)
@@ -146,7 +578,7 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    dev = torch.device("cuda", 0)
+    dev = torch.device(DEVICE, 0)
     name = torch.cuda.get_device_name(0)
     print(f"[1] card {name!r}, {torch.cuda.device_count()} visible; torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
@@ -162,6 +594,31 @@ def main():
              if "registers" in ln or "spill" in ln] if log.exists() else []
     print(f"[2] kernels built and loaded in {build_s:.2f} s; "
           + " | ".join(ptxas), flush=True)
+    # K3's PTX: no approximate sin/cos, and its FMAs against those of a
+    # kernel that holds only sinf and cosf, built with the same flags
+    flags = [f for f in _build.NVCC_FLAGS
+             if f not in ("-Xptxas=-v", "-Xcompiler", "-fPIC")]
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = os.path.join(tmp, "sincos.cu")
+        with open(ref, "w") as f:
+            f.write("__global__ void k(const float* x, float* y) {\n"
+                    "  float a = x[threadIdx.x];\n"
+                    "  y[threadIdx.x] = sinf(a);\n"
+                    "  y[threadIdx.x + 32] = cosf(a);\n}\n")
+        ptx = {}
+        for label, cu in (("K3", _build.CSRC / "huygens_kernel.cu"),
+                          ("sinf+cosf", ref)):
+            out = os.path.join(tmp, f"{len(ptx)}.ptx")
+            subprocess.run([_build._nvcc(), *flags, "-ptx", "-o", out,
+                            str(cu)], check=True, capture_output=True,
+                           timeout=300)
+            ptx[label] = open(out).read()
+    n_approx = ptx["K3"].count("sin.approx") + ptx["K3"].count("cos.approx")
+    print(f"[2] K3 PTX: {ptx['K3'].count('fma.rn.f32')} fma.rn.f32 (a "
+          f"kernel of only sinf and cosf: "
+          f"{ptx['sinf+cosf'].count('fma.rn.f32')}); {n_approx} "
+          "sin/cos.approx", flush=True)
+    check(n_approx == 0, "K3's PTX has an approximate sin/cos")
 
     # --- 3. kernels vs twins on the card ---------------------------------
     system0 = build_wolter_3_1(WOLTER_3_1_DEFAULT, AlignParams.zeros(dev))
@@ -237,13 +694,11 @@ def main():
                                   AlignParams.from_vector(vec))
         return (system, *run_and_loss(system))
 
-    tk.trace_deviation.launches = 0
-    tk.detector.launches = 0
+    reset_counts(tk, hk)
     system, res, loss, (sy, sz) = forward()
     torch.cuda.synchronize()
-    launches = {"K1": tk.trace_deviation.launches,
-                "K2": tk.detector.launches}
-    check(launches == {"K1": 1, "K2": 1},
+    launches = counts(tk, hk)
+    check(launches == {"K1": 1, "K2": 1, "K3": 0},
           f"main path launched {launches}, want K1 once and K2 once")
     n_valid = int(res.valid.sum())
     check(n_valid == n_rays, f"{n_rays - n_valid} invalid rays")
@@ -348,18 +803,54 @@ def main():
     print(f"[6] K1 kernel {k1_ms:.3f} ms vs twin {k1_plain:.3f} ms; K2 "
           f"kernel {k2_ms:.3f} ms vs twin {k2_plain:.3f} ms "
           f"(N={n_rays})", flush=True)
+    # bounds: each input read and each output written once; operations
+    # counted on the twins at one ray
+    k1_out = tk.trace_deviation(*k1_in)
+    k2_out = tk.detector(*k2_in)
+    k1_ops, k1_own = count_ops(tk.trace_deviation_reference, k1_in[0],
+                               k1_in[1][:, :1], k1_in[2][:, :1], k1_in[3])
+    k2_ops, k2_own = count_ops(tk.detector_reference, k2_in[0],
+                               *[t[..., :1] for t in k2_in[1:]])
+    k1_bound = bound(nbytes(*k1_in[:3], *k1_out), k1_ops * n_rays)
+    k2_bound = bound(nbytes(*k2_in, *k2_out), k2_ops * n_rays)
+    del k1_out, k2_out
+    print(f"[6] bounds (ops with FMA two_prods; as the kernel runs them): "
+          f"K1 {k1_ops} ops/ray ({k1_own}) -> {k1_bound[0]:.3f} ms "
+          f"({k1_bound[1]}); K2 {k2_ops} ops/ray ({k2_own}) -> "
+          f"{k2_bound[0]:.3f} ms ({k2_bound[1]})", flush=True)
+
+    # --- 7. K3 against its twin ------------------------------------------
+    k3_err = phase7_k3(dev, hk)
+
+    # --- 8. the wave path ----------------------------------------------------
+    with tempfile.TemporaryDirectory(prefix="akbx_wave_") as base:
+        w = phase8_wave(dev, vec, base, tk, hk)
+        k3_err = max(k3_err, w["handoff_err"])
+        w_launches = w["launches"]
+
+        # --- 9. times of the wave path -----------------------------------
+        k3_t = phase9_times(dev, w, hk)
+        k3_err = max(k3_err, k3_t.pop("max_abs_err"))
+        del w
 
     kernels = [
         {"name": "K1 trace_deviation (bounce chain)", "route": "cuda",
          "source": "akbx_torch/csrc/trace_kernel.cu",
          "replaces": "akbx/kernels/trace_kernel.py:227",
          "launches": launches["K1"], "max_abs_err": k_err["K1"][1],
-         "ms": k1_ms, "plain_ms": k1_plain},
+         "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound[0],
+         "bound_by": k1_bound[1], "library_ms": None},
         {"name": "K2 detector (tilt + detector planes + OPL)",
          "route": "cuda", "source": "akbx_torch/csrc/trace_kernel.cu",
          "replaces": "akbx/kernels/trace_kernel.py:469",
          "launches": launches["K2"], "max_abs_err": k_err["K2"][1],
-         "ms": k2_ms, "plain_ms": k2_plain},
+         "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound[0],
+         "bound_by": k2_bound[1], "library_ms": None},
+        {"name": "K3 huygens (df32 Huygens contraction)", "route": "cuda",
+         "source": "akbx_torch/csrc/huygens_kernel.cu",
+         "replaces": "akbx/kernels/huygens.py:150",
+         "launches": w_launches, "max_abs_err": k3_err, **k3_t,
+         "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -53,7 +53,8 @@ def test_build_wolter_3_1_matches_akbx(name, unit_coupled, vec):
                               jsys.AlignParams.from_vector(vec),
                               unit_coupled=unit_coupled)
     t = tsys.build_wolter_3_1(tsys.WOLTER_3_1_DEFAULT,
-                              convert.align_params_from_numpy(vec),
+                              convert.align_params_from_numpy(vec,
+                                                                 device="cpu"),
                               unit_coupled=unit_coupled)
     _assert_same_system(t, j)
 
@@ -64,7 +65,8 @@ def test_build_fan_centering_mean_matches_akbx():
                               jsys.AlignParams.from_vector(SEEDED),
                               fan_centering="mean")
     t = tsys.build_wolter_3_1(tsys.WOLTER_3_1_DEFAULT,
-                              tsys.AlignParams.from_vector(SEEDED),
+                              tsys.AlignParams.from_vector(SEEDED,
+                                                           device="cpu"),
                               fan_centering="mean")
     _assert_same_system(t, j)
 
@@ -96,20 +98,20 @@ def test_convert_params_and_spec():
     spec = convert.spec_from_akbx(
         dataclasses.asdict(jsys.WOLTER_3_1_DEFAULT))
     assert spec == tsys.WOLTER_3_1_DEFAULT
-    p = convert.align_params_from_numpy(SEEDED)
+    p = convert.align_params_from_numpy(SEEDED, device="cpu")
     np.testing.assert_array_equal(p.to_vector().numpy(), SEEDED)
     np.testing.assert_array_equal(
         np.asarray(jsys.AlignParams.from_vector(SEEDED).hyp_h),
         p.hyp_h.numpy())
     with pytest.raises(ValueError):
-        convert.align_params_from_numpy(np.zeros(25))
+        convert.align_params_from_numpy(np.zeros(25), device="cpu")
 
 
 def test_build_differentiable_in_params():
     """The placement is differentiable in the 26-vector under autograd."""
     v = torch.zeros(26, dtype=torch.float64, requires_grad=True)
     s = tsys.build_wolter_3_1(tsys.WOLTER_3_1_DEFAULT,
-                              tsys.AlignParams.from_vector(v))
+                              tsys.AlignParams.from_vector(v, device="cpu"))
     s.mirrors[3].coeffs[7].backward()
     assert torch.isfinite(v.grad).all() and v.grad.abs().sum() > 0
 
@@ -117,4 +119,5 @@ def test_build_differentiable_in_params():
 def test_shift_z_bug_emulation_not_ported():
     with pytest.raises(NotImplementedError):
         tsys.build_wolter_3_1(tsys.WOLTER_3_1_DEFAULT,
-                              tsys.AlignParams.zeros(), ref_shift_z_bug=True)
+                              tsys.AlignParams.zeros("cpu"),
+                              ref_shift_z_bug=True)

@@ -43,7 +43,8 @@ def both(request):
     jsys_ = jsys.build_wolter_3_1(jsys.WOLTER_3_1_DEFAULT,
                                   jsys.AlignParams.from_vector(vec))
     tsys_ = tsys.build_wolter_3_1(tsys.WOLTER_3_1_DEFAULT,
-                                  tsys.AlignParams.from_vector(vec))
+                                  tsys.AlignParams.from_vector(vec,
+                                                               device="cpu"))
     runs = {}
     for prec in ("pallas", "f64"):
         runs[prec] = (
@@ -135,7 +136,7 @@ def test_converted_system_traces_like_akbx(both):
                           for m in jsys_.mirrors]}
     for f in ("s2f_middle", "fan_h", "fan_v", "source", "valid"):
         fields[f] = np.asarray(getattr(jsys_, f))
-    tsys_ = convert.system_from_numpy(fields)
+    tsys_ = convert.system_from_numpy(fields, device="cpu")
     for tm, jm in zip(tsys_.mirrors, jsys_.mirrors):
         np.testing.assert_array_equal(tm.coeffs.numpy(), np.asarray(jm.coeffs))
     rays = jtr.ray_fan(jtr.fan_angles(jsys_.fan_h, N),
@@ -195,7 +196,7 @@ def test_tilt_stats_match_akbx(mode):
 
 def test_fast_trace_is_lazy():
     s = tsys.build_wolter_3_1(tsys.WOLTER_3_1_DEFAULT,
-                              tsys.AlignParams.zeros())
+                              tsys.AlignParams.zeros("cpu"))
     r = ttr.run(s, 5, 5, defocus=0.0, **_run_kwargs("pallas"))
     assert r.trace._result is None
     assert len(r.trace.points) == 4
@@ -207,7 +208,7 @@ def test_backward_raises_until_ported():
     backward raises until the f32 twin is ported."""
     v = torch.zeros(26, dtype=torch.float64, requires_grad=True)
     s = tsys.build_wolter_3_1(tsys.WOLTER_3_1_DEFAULT,
-                              tsys.AlignParams.from_vector(v))
+                              tsys.AlignParams.from_vector(v, device="cpu"))
     r = ttr.run(s, 5, 5, defocus=v[0], **_run_kwargs("pallas"))
     assert r.w32.requires_grad
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -222,6 +223,6 @@ def test_backward_raises_until_ported():
 ], ids=["exit_pupil_uniform", "df32", "ray_sharding", "edge_dense"])
 def test_unported_options_raise(kwargs):
     s = tsys.build_wolter_3_1(tsys.WOLTER_3_1_DEFAULT,
-                              tsys.AlignParams.zeros())
+                              tsys.AlignParams.zeros("cpu"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttr.run(s, 5, 5, defocus=0.0, **kwargs)

@@ -29,7 +29,7 @@ PLANE_REL = 1e-11
 
 @pytest.fixture(scope="module")
 def chief():
-    s = build_wolter_3_1(WOLTER_3_1_DEFAULT, AlignParams.zeros())
+    s = build_wolter_3_1(WOLTER_3_1_DEFAULT, AlignParams.zeros("cpu"))
     n = 9
     rays = ttr.ray_fan(ttr.fan_angles(s.fan_h, n), ttr.fan_angles(s.fan_v, n))
     src = s.source[:, None].expand(3, n * n)
