@@ -7,10 +7,22 @@ A double-word ("df") number is an unevaluated sum ``hi + lo`` with
 The error-free transforms (EFTs) are exact only if every add and multiply
 rounds exactly as written.  PyTorch eager runs each operator as its own
 kernel, so there is no algebraic folding and no FMA contraction between
-operators: the EFTs need no value barriers.  ``two_prod`` keeps the
-contraction-immune Dekker form of the JAX package all the same (only exact
-partial products, assembled with ``two_sum`` chains), because the CUDA
-kernels of :mod:`akbx_torch.kernels` share its arithmetic.
+operators: the EFTs need no value barriers.
+
+``two_prod`` has two forms.  For float32 it is the FMA form, ``p = a b``
+and ``e = fma(a, b, -p)``, which the CUDA kernels of
+:mod:`akbx_torch.kernels` run as ``__fmul_rn`` and ``__fmaf_rn``
+(``csrc/df32.cuh``); here the FMA is taken through float64, where the
+48-bit product of two float32 values is exact.  It gives the same
+``(p, e)`` as the Dekker form of the JAX package bit for bit wherever
+every partial product of that form is a normal float32.  Below that
+(``|a b|`` under about 2^-102 in IEEE arithmetic, under about 2^-78 where
+subnormals are flushed, as XLA does on the CPU) the FMA form stays exact
+up to one rounding of a subnormal error term and the Dekker form does
+not; in IEEE arithmetic the two then differ by at most 2^-148
+(``tests/test_torch_two_prod.py``).  For float64, the double-f64 placement of
+:mod:`akbx_torch.core.quadric_df`, there is no wider type, and the
+contraction-immune Dekker form of the JAX package stays.
 """
 
 from __future__ import annotations
@@ -52,10 +64,17 @@ def _split(a):
 
 
 def two_prod(a, b) -> DF:
-    """Error-free multiplication a * b = p + e, built only from the four
-    exactly representable Dekker partial products and ``two_sum`` chains
-    (see :func:`akbx.core.precision.two_prod` for why the FMA and classic
-    Dekker forms are not used)."""
+    """Error-free multiplication a * b = p + e.
+
+    float32: ``p = a b`` rounded, ``e = fma(a, b, -p)``.  The product of
+    two 24-bit mantissas has 48 bits and is exact in float64, so is its
+    difference from ``p``; the conversion back rounds only a subnormal
+    error term, once, as ``fmaf`` does.  float64: the Dekker form of
+    :func:`akbx.core.precision.two_prod`, four exactly representable
+    partial products assembled with ``two_sum`` chains."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        p = a * b
+        return DF(p, (a.double() * b.double() - p.double()).float())
     ah, al = _split(a)
     bh, bl = _split(b)
     hh = ah * bh

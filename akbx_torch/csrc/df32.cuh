@@ -1,4 +1,5 @@
-// Double-f32 ("df32") arithmetic for the deviation-trace kernels.
+// Double-f32 ("df32") arithmetic for the deviation-trace and Huygens
+// kernels.
 //
 // Port of the op set of akbx/kernels/huygens.py::_make_df_ops plus
 // akbx/kernels/trace_kernel.py::_df_div.  A df value is hi + lo with
@@ -6,9 +7,19 @@
 // exact only if every add and multiply rounds exactly as written, so every
 // operation inside them is an explicit round-to-nearest intrinsic
 // (__fadd_rn, __fsub_rn, __fmul_rn, __fdiv_rn, __fsqrt_rn), which the
-// compiler never contracts into an FMA; the build also passes -fmad=false
-// and never --use_fast_math.  two_prod keeps the contraction-immune
-// Dekker form: four exact partial products assembled with two_sum chains.
+// compiler never contracts; the build also passes -fmad=false and never
+// --use_fast_math.
+//
+// The one FMA is the explicit __fmaf_rn of two_prod: p = fl(a b) and
+// e = fma(a, b, -p) = a b - p, exact, in 2 instructions.  An explicit
+// intrinsic is emitted whatever -fmad says, and a product written as
+// __fmul_rn is a single consistent value here, so the two hazards that
+// made the JAX package build two_prod from Dekker splits and two_sum
+// chains (56 operations; akbx/core/precision.py::two_prod) do not exist
+// on this compiler.  Both forms give the same (p, e) bit for bit unless the
+// error term falls below the f32 normal range (|a b| under about 2^-102),
+// where the FMA rounds it once to a subnormal and the Dekker form ends
+// within 2^-148 of it.
 //
 // Each function performs the same operations in the same order as the
 // plain PyTorch twin (akbx_torch/core/precision.py and
@@ -34,29 +45,12 @@ __device__ __forceinline__ df fast_two_sum(float a, float b) {
   return {s, __fsub_rn(b, __fsub_rn(s, a))};
 }
 
-// Dekker split; 4097 = 2^12 + 1 for f32
-__device__ __forceinline__ df split(float a) {
-  float t = __fmul_rn(4097.0f, a);
-  float hi = __fsub_rn(t, __fsub_rn(t, a));
-  return {hi, __fsub_rn(a, hi)};
-}
-
+// exact product and its error term; the twin takes the same FMA through
+// f64 (core/precision.py::two_prod)
 __device__ __forceinline__ df two_prod(float a, float b) {
-  df as = split(a);
-  df bs = split(b);
-  float hh = __fmul_rn(as.hi, bs.hi);
-  float hl = __fmul_rn(as.hi, bs.lo);
-  float lh = __fmul_rn(as.lo, bs.hi);
-  float ll = __fmul_rn(as.lo, bs.lo);
-  df c = two_sum(hl, lh);
-  df p = two_sum(hh, c.hi);
-  df d = two_sum(p.lo, c.lo);
-  df q = two_sum(d.hi, ll);
-  df r = fast_two_sum(p.hi, q.hi);
-  df s = two_sum(d.lo, q.lo);
-  df t = two_sum(r.lo, s.hi);
-  float lo = __fadd_rn(t.hi, __fadd_rn(t.lo, s.lo));
-  return fast_two_sum(r.hi, lo);
+  float p = __fmul_rn(a, b);
+  float e = __fmaf_rn(a, b, -p);
+  return {p, e};
 }
 
 __device__ __forceinline__ df df_add(df x, df y) {

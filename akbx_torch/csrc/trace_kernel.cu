@@ -7,22 +7,46 @@
 //    launch where the JAX package launches once per plane.
 //
 // Both are per-ray elementwise chains in double-f32 (df32.cuh): one
-// thread per ray, 256 threads per block, a masked ragged tail.  The small
-// constants table (n_mirr x 64 f32 for K1, n_planes x 32 for K2) is
-// staged in shared memory once per block.  Every input and output is a
-// row of a (rows, N) plane stack, read and written coalesced by ray index
-// with 64-bit plane offsets (59 N passes 2^31 above 36.4M rays).
+// thread per ray, 256 threads per block, a masked ragged tail.  Every
+// input and output is a row of a (rows, N) plane stack, read and written
+// coalesced by ray index with 64-bit plane offsets (59 N passes 2^31 above
+// 36.4M rays).  Every add and multiply is an explicit round-to-nearest
+// intrinsic, so nothing is contracted; the only FMAs are the explicit
+// __fmaf_rn of two_prod (df32.cuh), and df_rsqrt's first guess is the
+// card's rsqrtf (rsqrt.approx), which its double-word Newton step
+// corrects.
 //
-// What bounds them on this card: K1 does ~7,200 f32 operations per ray
-// (1800 per mirror, the Pallas CostEstimate) against 48 bytes read and
-// 236 written per ray, i.e. ~25 flop/byte, close to the H100's f32
-// CUDA-core balance line (67 TFLOP/s over 3.35 TB/s = 20).  K2 does ~900
-// per plane against ~56 bytes read and ~112 written.  This first version
-// does nothing about speed: no vector loads, no register tuning.
+// What bounds them on this card: K1 does 8,572 f32 operations per ray at
+// four mirrors (a division or a square root counted as one) against 48
+// bytes read and 236 written, so the f32 instruction rate, not memory
+// (1.19 GB at 4,194,304 rays is a third of the operations' time).  Its
+// design serves the instruction pipe:
+//
+//  - The per-mirror constants (n_mirr x 64 f32) live in __constant__
+//    memory, so each is read as an instruction operand: no load
+//    instruction, no shared memory, no barrier.  The table is computed on
+//    the device from the chief trace, so the entry point fills the symbol
+//    with a device-to-device cudaMemcpyToSymbolAsync on the launch's
+//    stream, just before the launch; nothing passes through the host.  Two
+//    launches on one stream are ordered, so the symbol is safe between
+//    them.  K1 must therefore not run on two streams at once (the wrapper,
+//    kernels/trace_kernel.py::trace_deviation, raises if asked to).
+//  - The kernel is a template on the mirror count, dispatched by the
+//    entry point, and the mirror loop is fully unrolled together with the
+//    3-vector loops: every constant has a fixed offset, and dp, dd, dq
+//    and the dot products live in registers, with no stack frame.
+//  - The inputs stay two f64 planes read coalesced and split in the
+//    kernel; the 59 output rows are coalesced f32 stores.
+//
+// K2 does 1,582 operations per ray for both planes against ~56 bytes read
+// and ~112 written: bound by bytes.  Its small table (n_planes x 32 f32)
+// is staged in shared memory once per block.
 //
 // Build (akbx_torch/kernels/_build.py): nvcc -gencode
 // arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false -prec-div=true
-// -prec-sqrt=true -shared -Xcompiler -fPIC; never --use_fast_math.
+// -prec-sqrt=true -shared -Xcompiler -fPIC; never --use_fast_math.  With
+// -DAKBX_TUNE the library also holds akbx_trace_deviation_variant, the
+// occupancy targets and store hints that chip_kernel_tune.py times.
 
 #include <cuda_runtime.h>
 
@@ -87,9 +111,27 @@ __device__ __forceinline__ df df_where(bool c, df a, df b) {
   return c ? a : b;
 }
 
-__global__ void __launch_bounds__(THREADS)
-trace_deviation_kernel(const float* __restrict__ consts, int n_mirr,
-                       const double* __restrict__ dp64,
+// K1's constants, (n_mirr, 64) f32 rows; filled by launch_trace
+__constant__ float c_trace[MAX_MIRRORS * N_CONST];
+
+// a df constant of mirror m; with m and the offsets known at compile time
+// each word is an operand in the constant bank
+__device__ __forceinline__ df kdf(int m, int k_hi, int k_lo) {
+  return {c_trace[m * N_CONST + k_hi], c_trace[m * N_CONST + k_lo]};
+}
+
+// a store of a value that this kernel never reads again
+template <bool STREAM>
+__device__ __forceinline__ void put(float* p, float v) {
+  if (STREAM)
+    __stcs(p, v);
+  else
+    *p = v;
+}
+
+template <int N_MIRR, int MIN_BLOCKS, bool STREAM>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+trace_deviation_kernel(const double* __restrict__ dp64,
                        const double* __restrict__ dd64, long long n,
                        float* __restrict__ dq_hi, float* __restrict__ dq_lo,
                        float* __restrict__ od_hi, float* __restrict__ od_lo,
@@ -97,14 +139,11 @@ trace_deviation_kernel(const float* __restrict__ consts, int n_mirr,
                        float* __restrict__ dsum_hi,
                        float* __restrict__ dsum_lo,
                        float* __restrict__ valid_out) {
-  __shared__ float sc[MAX_MIRRORS * N_CONST];
-  for (int k = threadIdx.x; k < n_mirr * N_CONST; k += blockDim.x)
-    sc[k] = consts[k];
-  __syncthreads();
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
 
   df dp[3], dd[3];
+#pragma unroll
   for (int r = 0; r < 3; ++r) {
     dp[r] = split64(dp64[r * n + i]);
     dd[r] = split64(dd64[r * n + i]);
@@ -112,26 +151,29 @@ trace_deviation_kernel(const float* __restrict__ consts, int n_mirr,
   float valid = 1.0f;
   df dsum = {0.0f, 0.0f};
 
-  for (int m = 0; m < n_mirr; ++m) {
-    const float* c = sc + m * N_CONST;
+#pragma unroll
+  for (int m = 0; m < N_MIRR; ++m) {
     df M[3][3], gC[3], gA[3], Dv[3], Dn[3], bv[3];
+#pragma unroll
     for (int r = 0; r < 3; ++r) {
+#pragma unroll
       for (int q = 0; q < 3; ++q)
-        M[r][q] = cdf(c, M_HI + 3 * r + q, M_LO + 3 * r + q);
-      gC[r] = cdf(c, GC_HI + r, GC_LO + r);
-      gA[r] = cdf(c, GA_HI + r, GA_LO + r);
-      Dv[r] = cdf(c, D_HI + r, D_LO + r);
-      Dn[r] = cdf(c, DN_HI + r, DN_LO + r);
-      bv[r] = cdf(c, BV_HI + r, BV_LO + r);
+        M[r][q] = kdf(m, M_HI + 3 * r + q, M_LO + 3 * r + q);
+      gC[r] = kdf(m, GC_HI + r, GC_LO + r);
+      gA[r] = kdf(m, GA_HI + r, GA_LO + r);
+      Dv[r] = kdf(m, D_HI + r, D_LO + r);
+      Dn[r] = kdf(m, DN_HI + r, DN_LO + r);
+      bv[r] = kdf(m, BV_HI + r, BV_LO + r);
     }
-    const df Tc = cdf(c, T_HI, T_LO);
-    const df T2c = cdf(c, T2_HI, T2_LO);
-    const df Ac = cdf(c, A_HI, A_LO);
-    const df Bpc = cdf(c, BP_HI, BP_LO);
-    const df rhoc = cdf(c, RHO_HI, RHO_LO);
-    const float branch = c[BRANCH];
+    const df Tc = kdf(m, T_HI, T_LO);
+    const df T2c = kdf(m, T2_HI, T2_LO);
+    const df Ac = kdf(m, A_HI, A_LO);
+    const df Bpc = kdf(m, BP_HI, BP_LO);
+    const df rhoc = kdf(m, RHO_HI, RHO_LO);
+    const float branch = c_trace[m * N_CONST + BRANCH];
 
     df Mdp[3], Mdd[3];
+#pragma unroll
     for (int r = 0; r < 3; ++r) {
       Mdp[r] = dot3(M[r], dp);
       Mdd[r] = dot3(M[r], dd);
@@ -166,6 +208,7 @@ trace_deviation_kernel(const float* __restrict__ consts, int n_mirr,
 
     // dq = dp + T dd + dt (D + dd)
     df d_full[3], dq[3];
+#pragma unroll
     for (int r = 0; r < 3; ++r) {
       d_full[r] = df_add(dd[r], Dv[r]);
       dq[r] = df_add(df_add(dp[r], df_mul(dd[r], Tc)), df_mul(d_full[r], dt));
@@ -173,30 +216,33 @@ trace_deviation_kernel(const float* __restrict__ consts, int n_mirr,
 
     // unit normal: gradQ(dq) = bvec + 2 M dq (chief-centered frame)
     df nvec[3], n_unit[3];
+#pragma unroll
     for (int r = 0; r < 3; ++r)
       nvec[r] = df_add(df_scale(dot3(M[r], dq), 2.0f), bv[r]);
     const df inv_n = df_rsqrt(dot3(nvec, nvec));
+#pragma unroll
     for (int r = 0; r < 3; ++r) n_unit[r] = df_mul(nvec[r], inv_n);
 
     // reflect: r = d - 2 (d.n) n; deviation from the chief's reflected
     const df dn2 = df_scale(dot3(d_full, n_unit), -2.0f);
+#pragma unroll
     for (int r = 0; r < 3; ++r) {
       const df refl = df_add(d_full[r], df_mul(n_unit[r], dn2));
       dd[r] = df_add(refl, df_scale(Dn[r], -1.0f));
       dp[r] = dq[r];
       const long long row = (long long)(3 * m + r) * n + i;
-      dq_hi[row] = dq[r].hi;
-      dq_lo[row] = dq[r].lo;
-      od_hi[row] = dd[r].hi;
-      od_lo[row] = dd[r].lo;
+      put<STREAM>(dq_hi + row, dq[r].hi);
+      put<STREAM>(dq_lo + row, dq[r].lo);
+      put<STREAM>(od_hi + row, dd[r].hi);
+      put<STREAM>(od_lo + row, dd[r].lo);
     }
-    dt_hi[(long long)m * n + i] = dt.hi;
-    dt_lo[(long long)m * n + i] = dt.lo;
+    put<STREAM>(dt_hi + (long long)m * n + i, dt.hi);
+    put<STREAM>(dt_lo + (long long)m * n + i, dt.lo);
     dsum = m == 0 ? dt : df_add(dsum, dt);
   }
-  dsum_hi[i] = dsum.hi;
-  dsum_lo[i] = dsum.lo;
-  valid_out[i] = valid;
+  put<STREAM>(dsum_hi + i, dsum.hi);
+  put<STREAM>(dsum_lo + i, dsum.lo);
+  put<STREAM>(valid_out + i, valid);
 }
 
 // detector plane x = x_det + OPL finish on the tilt-rotated deviations
@@ -279,20 +325,65 @@ static unsigned int n_blocks(long long n) {
   return (unsigned int)((n + THREADS - 1) / THREADS);
 }
 
-// Plain C entry points, loaded with ctypes.  Each launches on the given
-// stream, does not synchronise, and returns cudaGetLastError() (0 = ok).
-extern "C" int akbx_trace_deviation(
-    const float* consts, int n_mirr, const double* dp64, const double* dd64,
-    long long n, float* dq_hi, float* dq_lo, float* od_hi, float* od_lo,
-    float* dt_hi, float* dt_lo, float* dsum_hi, float* dsum_lo, float* valid,
-    void* stream) {
-  if (n_mirr < 1 || n_mirr > MAX_MIRRORS) return (int)cudaErrorInvalidValue;
+// K1's arguments after the constants table and the mirror count
+#define K1_PARAMS                                                           \
+  const double *dp64, const double *dd64, long long n, float *dq_hi,        \
+      float *dq_lo, float *od_hi, float *od_lo, float *dt_hi, float *dt_lo, \
+      float *dsum_hi, float *dsum_lo, float *valid
+#define K1_ARGS                                                     \
+  dp64, dd64, n, dq_hi, dq_lo, od_hi, od_lo, dt_hi, dt_lo, dsum_hi, \
+      dsum_lo, valid
+
+// fills the constants symbol from the device table on the launch's
+// stream, then launches the instance for N_MIRR mirrors
+template <int N_MIRR, int MIN_BLOCKS, bool STREAM>
+static int launch_trace(const float* consts, K1_PARAMS, cudaStream_t stream) {
   if (n <= 0) return 0;
-  trace_deviation_kernel<<<n_blocks(n), THREADS, 0, (cudaStream_t)stream>>>(
-      consts, n_mirr, dp64, dd64, n, dq_hi, dq_lo, od_hi, od_lo, dt_hi,
-      dt_lo, dsum_hi, dsum_lo, valid);
+  const cudaError_t rc = cudaMemcpyToSymbolAsync(
+      c_trace, consts, sizeof(float) * N_MIRR * N_CONST, 0,
+      cudaMemcpyDeviceToDevice, stream);
+  if (rc != cudaSuccess) return (int)rc;
+  trace_deviation_kernel<N_MIRR, MIN_BLOCKS, STREAM>
+      <<<n_blocks(n), THREADS, 0, stream>>>(K1_ARGS);
   return (int)cudaGetLastError();
 }
+
+#define K1_MIN_BLOCKS 4         // blocks of 256 an SM the registers allow
+#define K1_STREAM_STORES false  // __stcs for the outputs
+
+// Plain C entry points, loaded with ctypes.  Each launches on the given
+// stream, does not synchronise, and returns the first CUDA error (0 = ok).
+// consts is a device pointer.
+extern "C" int akbx_trace_deviation(const float* consts, int n_mirr,
+                                    K1_PARAMS, void* stream) {
+  switch (n_mirr) {
+#define CASE(N)                                                   \
+  case N:                                                         \
+    return launch_trace<N, K1_MIN_BLOCKS, K1_STREAM_STORES>(      \
+        consts, K1_ARGS, (cudaStream_t)stream);
+    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
+#undef CASE
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+#ifdef AKBX_TUNE
+// K1 for four mirrors at another occupancy target and with or without
+// streaming stores, for timing
+extern "C" int akbx_trace_deviation_variant(int min_blocks, int stream_stores,
+                                            const float* consts, int n_mirr,
+                                            K1_PARAMS, void* stream) {
+  if (n_mirr != 4) return (int)cudaErrorInvalidValue;
+#define VARIANT(B, S)                             \
+  if (min_blocks == B && stream_stores == (int)S) \
+    return launch_trace<4, B, S>(consts, K1_ARGS, (cudaStream_t)stream);
+  VARIANT(1, false) VARIANT(2, false) VARIANT(3, false) VARIANT(4, false)
+  VARIANT(5, false) VARIANT(6, false)
+  VARIANT(2, true) VARIANT(3, true) VARIANT(4, true)
+#undef VARIANT
+  return (int)cudaErrorInvalidValue;
+}
+#endif
 
 extern "C" int akbx_detector(
     const float* consts, int n_planes, const float* dq_hi,

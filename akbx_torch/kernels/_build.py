@@ -6,7 +6,11 @@ shared library with a plain C interface, loaded with ``ctypes``.  The
 library lands in ``akbx_torch/_build/<hash>/``, keyed by a hash of the
 sources and flags, and is built at first use.  Never ``--use_fast_math``:
 the double-f32 error-free transforms need every add and multiply rounded
-as written (``-fmad=false``, IEEE division and square root).
+as written (``-fmad=false``, IEEE division and square root); their one
+FMA is an explicit ``__fmaf_rn``, which ``-fmad`` does not touch.
+
+``load(TUNE)`` builds a second library that also holds the kernels'
+timing variants (``chip_kernel_tune.py``).
 """
 
 from __future__ import annotations
@@ -26,17 +30,28 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-prec-div=true", "-prec-sqrt=true",
               "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
+TUNE = ("-DAKBX_TUNE",)   # extra flags of the timing-variants library
+
 _P = ctypes.c_void_p
+_F = ctypes.c_float
+_K1 = [_P, ctypes.c_int, _P, _P, ctypes.c_longlong] + [_P] * 9 + [_P]
+_K3 = [_P, ctypes.c_longlong, _P, _P, ctypes.c_longlong, _F, _F, _P, _P]
 _SIGNATURES = {
     # consts, n_mirr, dp64, dd64, n, 9 outputs, stream
-    "akbx_trace_deviation": [_P, ctypes.c_int, _P, _P, ctypes.c_longlong]
-    + [_P] * 9 + [_P],
+    "akbx_trace_deviation": _K1,
     # consts, n_planes, 6 inputs, n, 8 outputs, stream
     "akbx_detector": [_P, ctypes.c_int] + [_P] * 6 + [ctypes.c_longlong]
     + [_P] * 8 + [_P],
-    # tgt, n, src, w, m, k_pair, out, stream
-    "akbx_huygens": [_P, ctypes.c_longlong, _P, _P, ctypes.c_longlong, _P,
-                     _P, _P],
+    # tgt, n, src, w, m, k_hi, k_lo, out, stream
+    "akbx_huygens": _K3,
+    # a, b, n, hi, lo, stream
+    "akbx_two_prod": [_P, _P, ctypes.c_longlong, _P, _P, _P],
+}
+_TUNE_SIGNATURES = {
+    # min_blocks, stream_stores, then K1's
+    "akbx_trace_deviation_variant": [ctypes.c_int, ctypes.c_int] + _K1,
+    # block, unroll, split, then K3's
+    "akbx_huygens_variant": [ctypes.c_int] * 3 + _K3,
 }
 
 
@@ -44,8 +59,8 @@ def _sources() -> list[Path]:
     return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
 
 
-def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def source_hash(extra_flags=()) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(extra_flags)).encode())
     for p in _sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -63,11 +78,11 @@ def _nvcc() -> str:
     return nvcc
 
 
-def build() -> Path:
+def build(extra_flags=()) -> Path:
     """Compile the kernels unless this source hash is built; returns the
     library path.  The compilers' reports (registers, spills) are kept in
     ``build.log`` beside it."""
-    out_dir = BUILD_ROOT / source_hash()
+    out_dir = BUILD_ROOT / source_hash(extra_flags)
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
@@ -76,7 +91,8 @@ def build() -> Path:
     jobs = []
     for src in (p for p in _sources() if p.suffix == ".cu"):
         obj = out_dir / f"{src.stem}.{tag}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        cmd = [nvcc, *NVCC_FLAGS, *extra_flags, "-c", "-o", str(obj),
+               str(src)]
         jobs.append((cmd, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -100,10 +116,13 @@ def build() -> Path:
 
 
 @functools.cache
-def load() -> ctypes.CDLL:
+def load(extra_flags=()) -> ctypes.CDLL:
     """Build at first use and load the kernels' library."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in _SIGNATURES.items():
+    lib = ctypes.CDLL(str(build(extra_flags)))
+    signatures = dict(_SIGNATURES)
+    if "-DAKBX_TUNE" in extra_flags:
+        signatures.update(_TUNE_SIGNATURES)
+    for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

@@ -15,10 +15,15 @@ and launches the kernel on a CUDA tensor, never falling back.  It counts
 its launches in ``huygens.launches``.
 
 Twin and kernel compute the same f32 terms per pair with the same
-operations in the same order.  As the TPU kernel does, each sums a tile of
-:data:`TILE` sources in f32 and adds the tile sums, in tile order, into an
-f32 total, cast to f64 at the end.  They differ only in the order of the
-f32 sum inside a tile.
+operations in the same order (``two_prod`` is the FMA form in both, see
+:mod:`akbx_torch.core.precision`).  As the TPU kernel does, each sums a
+tile of :data:`TILE` sources in f32 and adds the tile sums, in tile order,
+into an f32 total, cast to f64 at the end.  They differ only in the order
+of the f32 sum inside a tile: the kernel adds the terms one by one in
+source order, the twin with ``torch.sum``.
+
+The wavenumber pair ``k_pair`` is a (2,) f32 tensor on the host whatever
+device the rows are on: the kernel takes it by value.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ from akbx_torch.kernels import (F32, F64, check, ptr, raise_on, split64,
 TWO_PI = 6.283185307179586
 TWO_PI_HI32 = np.float32(6.2831855)
 TWO_PI_LO32 = np.float32(TWO_PI - float(np.float32(6.2831855)))
-TILE = 256          # sources per f32 partial sum (the kernel's H_THREADS)
+TILE = 256          # sources per f32 partial sum (the kernel's H_TILE)
 TWIN_PAIRS = 1 << 22  # the twin's (target chunk x sources) per pass
 
 
@@ -76,10 +81,10 @@ def huygens_reference(tgt, src, w, k_pair, chunk: int | None = None):
     ``tgt``: (6, N) f32 rows x_hi, x_lo, y_hi, y_lo, z_hi, z_lo of the
     re-centred targets; ``src``: (6, M) the same for the sources; ``w``:
     (2, M) f32 weights re ds, im ds; ``k_pair``: (2,) f32 (hi, lo) of the
-    wavenumber.  Returns (re, im), each (N,) f64.  Runs over the source
-    tiles and, inside each, over chunks of ``chunk`` targets (default:
-    :data:`TWIN_PAIRS` pairs per chunk), so each live (chunk, TILE) array
-    stays at chunk x TILE x 4 bytes.
+    wavenumber, on the host.  Returns (re, im), each (N,) f64.  Runs over
+    the source tiles and, inside each, over chunks of ``chunk`` targets
+    (default: :data:`TWIN_PAIRS` pairs per chunk), so each live (chunk,
+    TILE) array stays at chunk x TILE x 4 bytes.
     """
     n, m = tgt.shape[1], src.shape[1]
     out = torch.zeros((2, n), dtype=F32, device=tgt.device)
@@ -102,7 +107,10 @@ def huygens_reference(tgt, src, w, k_pair, chunk: int | None = None):
 def huygens(tgt, src, w, k_pair, chunk: int | None = None):
     """K3: the twin on a CPU tensor (``chunk`` is the twin's), the CUDA
     kernel on a CUDA tensor; contract of :func:`huygens_reference`."""
-    if not use_kernel(tgt, src, w, k_pair):
+    if k_pair.device.type != "cpu":
+        raise ValueError(f"k_pair on {k_pair.device}: the kernel takes the "
+                         "wavenumber by value, keep it on the host")
+    if not use_kernel(tgt, src, w):
         return huygens_reference(tgt, src, w, k_pair, chunk=chunk)
     from akbx_torch.kernels import _build
 
@@ -114,7 +122,8 @@ def huygens(tgt, src, w, k_pair, chunk: int | None = None):
     lib = _build.load()
     out = torch.empty((2, n), dtype=F32, device=tgt.device)
     if n:
-        rc = lib.akbx_huygens(ptr(tgt), n, ptr(src), ptr(w), m, ptr(k_pair),
+        k_hi, k_lo = k_pair.tolist()
+        rc = lib.akbx_huygens(ptr(tgt), n, ptr(src), ptr(w), m, k_hi, k_lo,
                               ptr(out), stream(tgt))
         raise_on(rc, "huygens")
         huygens.launches += 1
@@ -150,7 +159,7 @@ def kernel_args(source, target_points, wavelength: float):
 
     On the host, in f64: re-centre both clouds on their joint centroid,
     weight the field by ``ds``, and split ``k`` into an f32 (hi, lo)
-    pair.
+    pair, which stays on the host.
     """
     k = 2.0 * math.pi / wavelength
     center = torch.cat([source.points, target_points], dim=1).mean(
@@ -159,7 +168,7 @@ def kernel_args(source, target_points, wavelength: float):
     k_lo = np.float32(k - float(k_hi))
     return (*_rows(target_points - center, source.points - center,
                    source.re * source.ds, source.im * source.ds),
-            torch.tensor(np.array([k_hi, k_lo]), device=center.device))
+            torch.tensor(np.array([k_hi, k_lo])))
 
 
 def propagate_pallas(source, target_points, wavelength: float,

@@ -11,9 +11,16 @@ wrapper counts its kernel launches in ``<wrapper>.launches``.
 Both compute in double-f32 ("df32", hi/lo f32 pairs, ~49 bits) the exact
 degree-2 deviation of every ray from an f64 chief ray; see
 :func:`akbx.trace.trace_df` for the math.  The twin and the kernel run the
-same operations in the same order; the one expected difference is the
+same operations in the same order (``two_prod`` is the FMA form in both,
+see :mod:`akbx_torch.core.precision`); the one expected difference is the
 first guess of ``df_rsqrt`` (``rsqrtf`` on the card vs ``torch.rsqrt``),
 which the double-word Newton step corrects.
+
+K1 reads its constants table from ``__constant__`` memory, which its
+launcher fills on the launch's stream.  Launches on one stream are
+ordered; on two streams at once they would overwrite each other's table,
+so :func:`trace_deviation` raises when a launch on another stream may
+still be running.
 """
 
 from __future__ import annotations
@@ -41,7 +48,7 @@ _BRANCH = 50
 _T2_HI, _T2_LO = 51, 52
 _BV_HI, _BV_LO = 53, 56        # quadric linear term (chief frame)
 _N_CONST = 64
-MAX_MIRRORS = 8                # the CUDA kernel's shared-memory table
+MAX_MIRRORS = 8                # the CUDA kernel's __constant__ table
 
 # constants-row layout of K2 (one row of 32 f32 per detector plane)
 _DR_HI, _DR_LO = 0, 9          # 3x3 tilt rotation R, row-major
@@ -321,6 +328,24 @@ def detector_reference(consts, dq_hi, dq_lo, dd_hi, dd_lo, dsum_hi,
 
 # --- dispatching wrappers -------------------------------------------------
 
+# card index -> (stream handle, event after K1's last launch there)
+_k1_last_launch: dict = {}
+
+
+def _claim_constants(device) -> torch.cuda.Stream:
+    """The stream K1 may launch on now: PyTorch's current one, unless
+    K1's last launch on this card went to another stream and may still be
+    running (it would lose its constants table)."""
+    current = torch.cuda.current_stream(device)
+    last = _k1_last_launch.get(current.device.index)
+    if last and last[0] != current.cuda_stream and not last[1].query():
+        raise RuntimeError(
+            "trace_deviation: a launch on another stream is still running; "
+            "K1's constants table is one per card, so launch it from one "
+            "stream at a time (or synchronise first)")
+    return current
+
+
 def trace_deviation(consts, dp64, dd64, n_mirr: int):
     """K1: the twin on a CPU tensor, the CUDA kernel on a CUDA tensor;
     contract of :func:`trace_deviation_reference`."""
@@ -335,6 +360,7 @@ def trace_deviation(consts, dp64, dd64, n_mirr: int):
     check(dp64, F64, (3, n), "dp64")
     check(dd64, F64, (3, n), "dd64")
     lib = _build.load()
+    current = _claim_constants(dp64.device)
 
     def empty(*shape):
         return torch.empty(shape, dtype=F32, device=dp64.device)
@@ -349,6 +375,9 @@ def trace_deviation(consts, dp64, dd64, n_mirr: int):
             *[ptr(o) for o in outs], stream(dp64))
         raise_on(rc, "trace_deviation")
         trace_deviation.launches += 1
+        done = torch.cuda.Event()
+        done.record(current)
+        _k1_last_launch[current.device.index] = (current.cuda_stream, done)
     return outs
 
 

@@ -7,10 +7,15 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
 
 Phases, one printed line or more each:
   1. the card (nvidia-smi name and power limit); TF32 matmul must be off;
-  2. build the CUDA kernels from akbx_torch/csrc (first use);
-  3. each kernel against its plain PyTorch twin on the card, at the main
-     path's shapes: the deviations of a 2048x2048 fan (4,194,304 rays),
-     and a seeded random set of the same scale at a ragged 1,000,003;
+  2. build the CUDA kernels from akbx_torch/csrc (first use); their PTX
+     must hold no approximate sin, cos, division or square root and no
+     flush-to-zero (K1's one rsqrt.approx is df_rsqrt's first guess), and
+     K3's FMAs must be those of sinf, cosf and its two_prods;
+  3. df32.cuh's two_prod on 1e8 seeded pairs against the twin's, bit for
+     bit; then each kernel against its plain PyTorch twin on the card, at
+     the main path's shapes: the deviations of a 2048x2048 fan (4,194,304
+     rays), and a seeded random set of the same scale at a ragged
+     1,000,003;
   4. the forward main path: build_wolter_3_1 -> trace.run(precision=
      "pallas") at a 2048x2048 fan from a seeded misalignment, with the
      bench loss; it must launch K1 once and K2 once;
@@ -36,10 +41,9 @@ Phases, one printed line or more each:
 Then a JSON line of the kernels, each with its bound: the larger of its
 bytes over 3.35e12 B/s and its f32 operations over 3.35e13 op/s (the H100
 SXM's 67 TFLOP/s f32 counts an FMA as two operations).  The operations
-are counted on each twin, with every two_prod at its cost with an FMA (a
-multiply and an FMA), which gives the same exact product and error term;
-the kernels, built with -fmad=false, run the Dekker form instead, and
-their own count is printed beside the bound.  As the last line
+are counted on each twin, with every f32 two_prod at 2 (a multiply and an
+FMA, as the kernels run it; the twin takes the FMA through f64).  As the
+last line
 {"ok": true, "device": {...}}.  Any failure raises: the exit code is not
 0 and the last line is not printed.
 """
@@ -47,6 +51,7 @@ their own count is printed beside the bound.  As the last line
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -113,46 +118,45 @@ class OpCount(TorchDispatchMode):
 
 
 @contextlib.contextmanager
-def fma_two_prods(counter):
-    """Counts every ``two_prod`` of akbx_torch at its cost with an FMA:
-    p = a b and e = fma(a, b, -p), two operations per element."""
+def two_prods_as_fma(counter):
+    """Counts every ``two_prod`` of akbx_torch as the kernels run it:
+    p = a b and e = fma(a, b, -p), two operations per element, not the
+    tensor passes of the twin's detour through f64.  ``counter.calls``
+    counts the ``two_prod`` calls."""
     from akbx_torch.core import precision
 
-    dekker = precision.two_prod
+    twin = precision.two_prod
+    counter.calls = 0
 
     def two_prod(a, b):
         counter.paused = True
         try:
-            out = dekker(a, b)
+            out = twin(a, b)
         finally:
             counter.paused = False
         counter.ops += 2 * out.hi.numel()
+        counter.calls += 1
         return out
 
     mods = [m for k, m in list(sys.modules.items())
             if k.startswith("akbx_torch") and getattr(m, "two_prod", None)
-            is dekker]
+            is twin]
     for m in mods:
         m.two_prod = two_prod
     try:
         yield
     finally:
         for m in mods:
-            m.two_prod = dekker
+            m.two_prod = twin
 
 
 def count_ops(fn, *args):
-    """(floor, own): the operations of ``fn(*args)`` on CPU copies of
-    ``args``, with every two_prod at its FMA cost, and as the twin runs
-    them (the Dekker two_prod, as the kernels do)."""
+    """(operations, two_prod calls) of ``fn(*args)`` on CPU copies of
+    ``args``, with every two_prod at 2 operations per element."""
     cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
-    counts = []
-    for fma in (True, False):
-        with OpCount() as c, (fma_two_prods(c) if fma
-                              else contextlib.nullcontext()):
-            fn(*cpu)
-        counts.append(c.ops)
-    return tuple(counts)
+    with OpCount() as c, two_prods_as_fma(c):
+        fn(*cpu)
+    return c.ops, c.calls
 
 
 def bound(n_bytes, n_ops):
@@ -324,6 +328,102 @@ def phase7_k3(dev, hk):
           f"{time_ms(lambda: hk.huygens(*args), reps=3, warmup=1):.3f} ms "
           "(median of 3)", flush=True)
     return worst
+
+
+# approximate or flushing instructions that must not appear in a kernel's
+# PTX ("sqrt.approx" but not "rsqrt.approx": df_rsqrt's first guess)
+_BANNED_PTX = (r"sin\.approx", r"cos\.approx", r"div\.approx",
+               r"(?<!r)sqrt\.approx", r"\.ftz")
+
+
+def check_ptx(hk):
+    """Phase 2's reading of the kernels' PTX.  Nothing approximate and no
+    flush-to-zero in K3's and K1/K2's sources, but K1's rsqrt.approx.
+    K3's ``fma.rn.f32`` are those of its pair chains: per chain, the FMAs
+    of one sinf and one cosf (counted in a kernel of only those, built
+    with the same flags) and one per ``two_prod`` (counted on the twin).
+    That nothing else was contracted shows in the bit-identity with the
+    twins, phases 3 and 7."""
+    from akbx_torch.kernels import _build
+
+    flags = [f for f in _build.NVCC_FLAGS
+             if f not in ("-Xptxas=-v", "-Xcompiler", "-fPIC")]
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = os.path.join(tmp, "sincos.cu")
+        with open(ref, "w") as f:
+            f.write("__global__ void k(const float* x, float* y) {\n"
+                    "  float a = x[threadIdx.x];\n"
+                    "  y[threadIdx.x] = sinf(a);\n"
+                    "  y[threadIdx.x + 32] = cosf(a);\n}\n")
+        jobs = {}
+        for label, cu in (("K3", _build.CSRC / "huygens_kernel.cu"),
+                          ("K1+K2", _build.CSRC / "trace_kernel.cu"),
+                          ("sinf+cosf", ref)):
+            out = os.path.join(tmp, f"{len(jobs)}.ptx")
+            jobs[label] = (out, subprocess.Popen(
+                [_build._nvcc(), *flags, "-I", str(_build.CSRC), "-ptx",
+                 "-o", out, str(cu)], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        ptx = {}
+        for label, (out, proc) in jobs.items():
+            msg = proc.communicate(timeout=600)[0]
+            check(proc.returncode == 0, f"nvcc -ptx of {label}: {msg}")
+            ptx[label] = open(out).read()
+    fma = {k: v.count("fma.rn.f32") for k, v in ptx.items()}
+    banned = {k: {pat: len(re.findall(pat, ptx[k])) for pat in _BANNED_PTX}
+              for k in ("K3", "K1+K2")}
+    rsqrt = ptx["K1+K2"].count("rsqrt.approx")
+    # one pair on the twin: its two_prod calls are the kernel's sites
+    one = [torch.zeros(6, 1), torch.ones(6, 1), torch.ones(2, 1),
+           torch.ones(2)]
+    _, sites = count_ops(hk.huygens_reference, *one)
+    chains = ptx["K3"].count("sqrt.rn.f32")   # one df_sqrt per pair chain
+    print(f"[2] K3 PTX: {fma['K3']} fma.rn.f32 in {chains} pair chains (the "
+          f"unrolled sources and the tail); a kernel of only sinf and cosf: "
+          f"{fma['sinf+cosf']}; two_prod sites per chain (the twin's calls "
+          f"on one pair): {sites}; {chains} x ({fma['sinf+cosf']} + {sites}) "
+          f"= {chains * (fma['sinf+cosf'] + sites)}.  K1+K2 PTX: "
+          f"{fma['K1+K2']} fma.rn.f32, {rsqrt} rsqrt.approx (df_rsqrt's "
+          f"first guess, one per mirror body).  Banned patterns: {banned}",
+          flush=True)
+    check(all(n == 0 for v in banned.values() for n in v.values()),
+          "a kernel's PTX has an approximate or flushing instruction")
+    check(chains > 0 and fma["K3"] == chains * (fma["sinf+cosf"] + sites),
+          "K3's PTX has FMAs beyond sinf, cosf and its two_prods")
+
+
+def check_two_prod(dev, n=100_000_000):
+    """Phase 3's first check: df32.cuh's two_prod against the twin's on
+    ``n`` seeded float32 pairs on the card, bit for bit in both words.
+    Magnitudes from 2^-63 to 2^63, so products down to 2^-126 and error
+    terms far into the subnormals; signed zeros mixed in."""
+    from akbx_torch.core import precision
+    from akbx_torch.kernels import df32_check
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def operand():
+        x = torch.rand(n, generator=gen, device=dev) * 2.0 - 1.0
+        x = torch.ldexp(x, torch.randint(-62, 63, (n,), generator=gen,
+                                         device=dev))
+        x[::1009] = 0.0
+        x[::2003] = -0.0
+        return x
+
+    a, b = operand(), operand()
+    got = df32_check.two_prod(a, b)
+    torch.cuda.synchronize()
+    want = precision.two_prod(a, b)
+    tiny = torch.finfo(torch.float32).tiny
+    sub = int(((want.lo != 0) & (want.lo.abs() < tiny)).sum())
+    zero = int((want.hi == 0).sum())
+    same = all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+               for g, w in zip(got, want))
+    print(f"[3] two_prod (df32.cuh) vs the twin on {n} seeded pairs: "
+          f"bit-identical {same} ({sub} subnormal error terms, {zero} zero "
+          "products among them)", flush=True)
+    check(same and sub > 0 and zero > 0,
+          "df32.cuh's two_prod differs from the twin's")
 
 
 def reset_counts(tk, hk):
@@ -544,8 +644,8 @@ def phase9_times(dev, w, hk):
           flush=True)
     check(full_rel <= HUYGENS_REL, "K3 disagrees with its twin (full stage)")
     n_full = full[0].shape[1] * full[1].shape[1]
-    ops_pair, own_pair = count_ops(hk.huygens_reference, full[0][:, :1],
-                                   full[1][:, :1], full[2][:, :1], full[3])
+    ops_pair, _ = count_ops(hk.huygens_reference, full[0][:, :1],
+                            full[1][:, :1], full[2][:, :1], full[3])
     # each input read once; the output, (2, N) f32, written once
     bound_ms, bound_by = bound(nbytes(*full) + 8 * full[0].shape[1],
                                ops_pair * n_full)
@@ -555,9 +655,9 @@ def phase9_times(dev, w, hk):
     print(f"[9] K3 on the M4 -> Image stage ({W_SIDE ** 2} x {W_SIDE ** 2} = "
           f"{n_full} pairs): kernel {k3_full:.3f} ms (median of {REPS}, "
           f"{n_full / (k3_full / 1e3):.4e} pairs/s), twin {twin_full:.3f} ms "
-          f"(one run); {ops_pair} f32 operations per pair with FMA two_prods "
-          f"({own_pair} as the kernel runs them) -> bound {bound_ms:.3f} ms "
-          f"({bound_by}), {bound_ms / k3_full:.3f} of it", flush=True)
+          f"(one run); {ops_pair} f32 operations per pair -> bound "
+          f"{bound_ms:.3f} ms ({bound_by}), {bound_ms / k3_full:.3f} of it",
+          flush=True)
     return {"ms": k3_full, "plain_ms": twin_full, "bound_ms": bound_ms,
             "bound_by": bound_by, "max_abs_err": full_err}
 
@@ -594,33 +694,10 @@ def main():
              if "registers" in ln or "spill" in ln] if log.exists() else []
     print(f"[2] kernels built and loaded in {build_s:.2f} s; "
           + " | ".join(ptxas), flush=True)
-    # K3's PTX: no approximate sin/cos, and its FMAs against those of a
-    # kernel that holds only sinf and cosf, built with the same flags
-    flags = [f for f in _build.NVCC_FLAGS
-             if f not in ("-Xptxas=-v", "-Xcompiler", "-fPIC")]
-    with tempfile.TemporaryDirectory() as tmp:
-        ref = os.path.join(tmp, "sincos.cu")
-        with open(ref, "w") as f:
-            f.write("__global__ void k(const float* x, float* y) {\n"
-                    "  float a = x[threadIdx.x];\n"
-                    "  y[threadIdx.x] = sinf(a);\n"
-                    "  y[threadIdx.x + 32] = cosf(a);\n}\n")
-        ptx = {}
-        for label, cu in (("K3", _build.CSRC / "huygens_kernel.cu"),
-                          ("sinf+cosf", ref)):
-            out = os.path.join(tmp, f"{len(ptx)}.ptx")
-            subprocess.run([_build._nvcc(), *flags, "-ptx", "-o", out,
-                            str(cu)], check=True, capture_output=True,
-                           timeout=300)
-            ptx[label] = open(out).read()
-    n_approx = ptx["K3"].count("sin.approx") + ptx["K3"].count("cos.approx")
-    print(f"[2] K3 PTX: {ptx['K3'].count('fma.rn.f32')} fma.rn.f32 (a "
-          f"kernel of only sinf and cosf: "
-          f"{ptx['sinf+cosf'].count('fma.rn.f32')}); {n_approx} "
-          "sin/cos.approx", flush=True)
-    check(n_approx == 0, "K3's PTX has an approximate sin/cos")
+    check_ptx(hk)
 
     # --- 3. kernels vs twins on the card ---------------------------------
+    check_two_prod(dev)
     system0 = build_wolter_3_1(WOLTER_3_1_DEFAULT, AlignParams.zeros(dev))
     rays = trace.ray_fan(trace.fan_angles(system0.fan_h, N_SIDE),
                          trace.fan_angles(system0.fan_v, N_SIDE))
@@ -807,17 +884,18 @@ def main():
     # counted on the twins at one ray
     k1_out = tk.trace_deviation(*k1_in)
     k2_out = tk.detector(*k2_in)
-    k1_ops, k1_own = count_ops(tk.trace_deviation_reference, k1_in[0],
-                               k1_in[1][:, :1], k1_in[2][:, :1], k1_in[3])
-    k2_ops, k2_own = count_ops(tk.detector_reference, k2_in[0],
-                               *[t[..., :1] for t in k2_in[1:]])
+    k1_ops, _ = count_ops(tk.trace_deviation_reference, k1_in[0],
+                          k1_in[1][:, :1], k1_in[2][:, :1], k1_in[3])
+    k2_ops, _ = count_ops(tk.detector_reference, k2_in[0],
+                          *[t[..., :1] for t in k2_in[1:]])
     k1_bound = bound(nbytes(*k1_in[:3], *k1_out), k1_ops * n_rays)
     k2_bound = bound(nbytes(*k2_in, *k2_out), k2_ops * n_rays)
     del k1_out, k2_out
-    print(f"[6] bounds (ops with FMA two_prods; as the kernel runs them): "
-          f"K1 {k1_ops} ops/ray ({k1_own}) -> {k1_bound[0]:.3f} ms "
-          f"({k1_bound[1]}); K2 {k2_ops} ops/ray ({k2_own}) -> "
-          f"{k2_bound[0]:.3f} ms ({k2_bound[1]})", flush=True)
+    print(f"[6] bounds (a two_prod counted as 2 operations): K1 {k1_ops} "
+          f"ops/ray -> {k1_bound[0]:.3f} ms ({k1_bound[1]}), "
+          f"{k1_bound[0] / k1_ms:.3f} of it; K2 {k2_ops} ops/ray -> "
+          f"{k2_bound[0]:.3f} ms ({k2_bound[1]}), "
+          f"{k2_bound[0] / k2_ms:.3f} of it", flush=True)
 
     # --- 7. K3 against its twin ------------------------------------------
     k3_err = phase7_k3(dev, hk)

@@ -1,6 +1,6 @@
-"""The CUDA kernels K1/K2/K3 on the card against their PyTorch twins, the
-fast path on the card against the same on the CPU, and the Huygens path
-on the card against the same on the CPU.
+"""The CUDA kernels K1/K2/K3 and df32.cuh's two_prod on the card against
+their PyTorch twins, the fast path on the card against the same on the
+CPU, and the Huygens path on the card against the same on the CPU.
 
 Needs a CUDA card and nvcc; skips otherwise.  This file imports no jax,
 so it runs on a machine without it:
@@ -13,6 +13,8 @@ import pytest
 import torch
 
 from akbx_torch import trace, wave
+from akbx_torch.core import precision
+from akbx_torch.kernels import df32_check
 from akbx_torch.kernels import huygens as hk
 from akbx_torch.kernels import trace_kernel as tk
 from akbx_torch.systems import AlignParams, WOLTER_3_1_DEFAULT, build_wolter_3_1
@@ -84,6 +86,100 @@ def test_kernels_match_twins(dev, consts, n):
     _assert_match(k2, tk.detector_reference(dcon, *ins), range(0, 8, 2))
 
 
+def test_k1_k2_bit_identical_to_twins_at_a_ragged_size(dev, consts):
+    """Every output word of K1 and K2 equals the twin's at 100,003 rays:
+    the same df32 operations in the same order, the FMA two_prod in both,
+    and ``rsqrtf`` behind ``torch.rsqrt`` on the card."""
+    table, D4, scale = consts
+    n = 100_003
+    rng = np.random.default_rng(5)
+    dd = torch.tensor(rng.uniform(-1, 1, (3, n)), dtype=torch.float64,
+                      device=dev) * scale
+    dp = torch.tensor(rng.normal(0, 1e-6, (3, n)), dtype=torch.float64,
+                      device=dev)
+    k1 = tk.trace_deviation(table, dp, dd, 4)
+    t1 = tk.trace_deviation_reference(table, dp, dd, 4)
+    for k, (a, b) in enumerate(zip(k1, t1)):
+        assert torch.equal(a, b), f"K1 output {k}"
+    R = torch.eye(3, dtype=torch.float64, device=dev)
+    f64 = dict(dtype=torch.float64, device=dev)
+    dcon = torch.cat([tk.pack_det_consts(R, D4, torch.tensor(0.2, **f64),
+                                         torch.tensor(0.2, **f64)),
+                      tk.pack_det_consts(R, D4, torch.tensor(0.201, **f64),
+                                         torch.tensor(0.201, **f64))])
+    ins = (t1[0][9:12], t1[1][9:12], t1[2][9:12], t1[3][9:12], t1[6], t1[7])
+    for k, (a, b) in enumerate(zip(tk.detector(dcon, *ins),
+                                   tk.detector_reference(dcon, *ins))):
+        assert torch.equal(a, b), f"K2 output {k}"
+
+
+@pytest.mark.parametrize("n_mirr", [1, 2, 3, 8])
+def test_k1_every_mirror_count(dev, consts, n_mirr):
+    """K1 is instantiated per mirror count: 1, 2, 3 and the largest, 8
+    (the table's four rows twice), against the twin."""
+    table, _, scale = consts
+    rows = torch.cat([table, table])[:n_mirr].contiguous()
+    rng = np.random.default_rng(n_mirr)
+    n = 1000
+    dd = torch.tensor(rng.uniform(-1, 1, (3, n)), dtype=torch.float64,
+                      device=dev) * scale * 1e-3
+    dp = torch.tensor(rng.normal(0, 1e-7, (3, n)), dtype=torch.float64,
+                      device=dev)
+    k1 = tk.trace_deviation(rows, dp, dd, n_mirr)
+    torch.cuda.synchronize()
+    t1 = tk.trace_deviation_reference(rows, dp, dd, n_mirr)
+    assert k1[0].shape == (3 * n_mirr, n) and k1[4].shape == (n_mirr, n)
+    assert torch.equal(k1[8], t1[8])
+    _assert_match(k1, t1, range(0, 8, 2))
+
+
+def test_k1_refuses_a_second_stream_while_running(dev, consts):
+    """K1's constants table is one ``__constant__`` symbol per card: a
+    launch from another stream while the last may still run raises, and
+    goes through once that launch has finished."""
+    table, _, scale = consts
+    n = 4_000_000
+    dd = torch.zeros(3, n, dtype=torch.float64, device=dev)
+    tk.trace_deviation(table, dd, dd, 4)
+    torch.cuda.synchronize()
+    other = torch.cuda.Stream(dev)
+    tk.trace_deviation(table, dd, dd, 4)
+    with torch.cuda.stream(other):
+        with pytest.raises(RuntimeError, match="one stream"):
+            tk.trace_deviation(table, dd, dd, 4)
+        torch.cuda.synchronize()
+        out = tk.trace_deviation(table, dd, dd, 4)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out[0]).all())
+
+
+def test_two_prod_entry_point_matches_twin(dev):
+    """df32.cuh's two_prod against the twin's, bit for bit: 4,000,003
+    seeded pairs over 2^-63..2^63 with signed zeros, so products down to
+    2^-126 and subnormal error terms."""
+    rng = np.random.default_rng(6)
+    n = 4_000_003
+
+    def operand():
+        x = rng.uniform(-1, 1, n) * 2.0 ** rng.integers(-62, 63, n)
+        x[::1009] = 0.0
+        x[::2003] = -0.0
+        return torch.tensor(x.astype(np.float32), device=dev)
+
+    a, b = operand(), operand()
+    got = df32_check.two_prod(a, b)
+    torch.cuda.synchronize()
+    want = precision.two_prod(a, b)
+    tiny = torch.finfo(torch.float32).tiny
+    assert bool(((want.lo != 0) & (want.lo.abs() < tiny)).any())
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    # and the twin on the card equals the twin on the CPU
+    cpu = precision.two_prod(a.cpu(), b.cpu())
+    for w, c in zip(want, cpu):
+        assert torch.equal(w.cpu().view(torch.int32), c.view(torch.int32))
+
+
 def test_wrappers_count_and_check(dev, consts):
     table, _, _ = consts
     d = torch.zeros(3, 10, dtype=torch.float64, device=dev)
@@ -130,7 +226,7 @@ def _huygens_inputs(dev, n, m, lam, seed):
 
     return (rows(tgt), rows(src),
             torch.tensor(w, dtype=torch.float32, device=dev),
-            torch.tensor(k_pair, device=dev))
+            torch.tensor(k_pair))
 
 
 @pytest.mark.parametrize("lam", [13.5e-9, 0.135e-9], ids=["euv", "hard"])
@@ -168,6 +264,8 @@ def test_huygens_checks_and_never_runs_the_twin(dev, monkeypatch):
         hk.huygens(ins[0], ins[1].cpu(), *ins[2:])
     with pytest.raises(ValueError):
         hk.huygens(ins[0][:, ::2], *ins[1:])
+    with pytest.raises(ValueError):   # the wavenumber stays on the host
+        hk.huygens(*ins[:3], ins[3].to(dev))
 
 
 def test_huygens_path_card_matches_cpu(dev):

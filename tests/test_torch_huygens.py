@@ -157,6 +157,20 @@ def test_wrapper_runs_twin_on_cpu_without_launch():
     assert th.huygens.launches == before
 
 
+def test_wavenumber_pair_stays_on_the_host():
+    """``kernel_args`` keeps k's f32 pair on the host (the kernel takes it
+    by value), and the wrapper refuses one that is elsewhere."""
+    src_pts, u, ds, tgt = _cloud(5, 4, 3)
+    ts = tw.WaveField.from_complex(src_pts, u, ds, device="cpu")
+    args = th.kernel_args(ts, torch.from_numpy(tgt), EUV)
+    assert args[3].device.type == "cpu" and args[3].dtype == torch.float32
+    k = 2 * np.pi / EUV
+    assert float(args[3][0].double() + args[3][1].double()) == pytest.approx(
+        k, rel=2.0 ** -45)
+    with pytest.raises(ValueError, match="host"):
+        th.huygens(*args[:3], torch.zeros(2, device="meta"))
+
+
 def test_wrapper_rejects_other_devices():
     t = torch.zeros(6, 8, device="meta")
     with pytest.raises(ValueError):
