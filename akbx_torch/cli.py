@@ -1,12 +1,15 @@
-"""Command-line interface of the port: the wave workflow of
-:mod:`akbx.cli`.
+"""Command-line interface of the port (the workflows of :mod:`akbx.cli`
+ported so far).
 
+* ``trace``       — build, autofocus, trace, wavefront map, Legendre
+  decomposition and PSF artifacts (``--config`` takes a TraceConfig);
 * ``export-wave`` — ray->wave handoff directory: build, autofocus, trace
   with the exit-pupil re-fan, export;
 * ``propagate``   — Huygens stage pipeline from a handoff directory, with
-  stage caching.
+  stage caching (``--config`` takes a WaveConfig);
+* ``align``       — sensitivity-matrix alignment solve.
 
-Both print akbx's JSON summary line and run on ``--device`` (default
+Each prints akbx's JSON summary line and runs on ``--device`` (default
 ``cuda``).  Run ``python -m akbx_torch.cli <cmd> --help``.
 """
 
@@ -58,6 +61,95 @@ def _build_fn(args):
     return build, params
 
 
+def cmd_trace(args):
+    from akbx_torch import align, config, io, trace, wavefront
+    from akbx_torch.analysis import legendre, psf, rectify
+    from akbx_torch.tooling import write_sweep_artifacts
+    from akbx_torch.utils import to_numpy
+
+    if args.config:
+        cfg = config.load_config(args.config)
+        if cfg.n_rays_h != cfg.n_rays_v:
+            raise SystemExit("cli trace expects a square fan "
+                             f"(config has {cfg.n_rays_h}x{cfg.n_rays_v})")
+        args.rays = cfg.n_rays_h
+        args.wavelength = cfg.energy.wavelength_m
+        args.defocus_wave = cfg.defocus_for_wave
+    else:
+        cfg = config.TraceConfig(n_rays_h=args.rays, n_rays_v=args.rays,
+                                 defocus_for_wave=args.defocus_wave)
+
+    build, params = _build_fn(args)
+    if args.autofocus:
+        params = align.auto_focus(build, params, n=min(args.rays, 21), iters=5)
+    sys_ = build(params)
+    n = args.rays
+    res = trace.run_config(sys_, cfg, defocus=params.defocus)
+    mat, gy, gz = wavefront.wavefront_grid(res, n, n)
+    lam_nm = args.wavelength * 1e9
+
+    out_dir = io.run_directory(args.out, f"{args.system}_trace")
+    io.write_optical_params(out_dir, params.to_vector())
+    np.savetxt(os.path.join(out_dir, "matrixWave2(nm).txt"), to_numpy(mat))
+
+    rect = rectify.extract_square_region(mat / lam_nm, n)
+    np.savetxt(os.path.join(out_dir, "rectified_img.txt"), to_numpy(rect))
+    fits, ips, orders = legendre.match_multi(rect[1:-2, 1:-2], 5)
+    pvs = np.append(to_numpy(legendre.mode_pvs(fits, ips)),
+                    float(wavefront.pv_6sigma(mat / lam_nm)))
+    write_sweep_artifacts(out_dir, ips, orders, pvs, legendre.fit_sum(fits))
+
+    out = psf.psf_from_wavefront(mat, gy, gz, args.defocus_wave,
+                                 args.wavelength)
+    for key, name in (("psf", "psf"), ("x_im", "psf_x"), ("y_im", "psf_y")):
+        np.save(os.path.join(out_dir, f"{name}.npy"), to_numpy(out[key]))
+
+    print(json.dumps({
+        "pv_6sigma_lambda": float(pvs[-1]),
+        "defocus": float(params.defocus),
+        "astig_h": float(params.astig_h),
+        "valid_rays": int(res.valid.sum()),
+        "out_dir": out_dir,
+    }))
+    return 0
+
+
+def cmd_align(args):
+    """Sensitivity-matrix alignment solve: measure the compare_sep
+    aberration vector, take its Jacobian over the chosen misalignment
+    parameters (reverse mode, the f64 engine), apply the least-squares
+    correction."""
+    from akbx_torch import align, io, trace
+    from akbx_torch.systems import AlignParams
+    from akbx_torch.utils import to_numpy
+
+    build, params = _build_fn(args)
+    n = min(args.rays, 21)
+    idx = [int(i) for i in args.indices.split(",")]
+
+    def metric_fn(vec):
+        sys_ = build(AlignParams.from_vector(vec))
+        res = trace.run(sys_, n, n, defocus=vec[0],
+                        exit_pupil_uniform=False, tilt_correction=True)
+        m = align.compare_sep(res.trace, sys_.s2f_middle + vec[0], n, n)
+        return align.aberration_vector(m, mode=args.mode)
+
+    p0 = params.to_vector()
+    before = metric_fn(p0)
+    p1 = align.solve_alignment(metric_fn, p0, idx, iters=args.iters,
+                               damping=args.damping)
+    after = metric_fn(p1)
+    os.makedirs(args.out, exist_ok=True)
+    io.write_optical_params(args.out, p1)
+    print(json.dumps({
+        "indices": idx,
+        "abrr_before": to_numpy(before).tolist(),
+        "abrr_after": to_numpy(after).tolist(),
+        "params": to_numpy(p1).tolist(),
+    }))
+    return 0
+
+
 def cmd_export_wave(args):
     from akbx_torch import align, export, io, trace
 
@@ -76,13 +168,13 @@ def cmd_export_wave(args):
 
 
 def cmd_propagate(args):
-    from akbx_torch import io, wave
+    from akbx_torch import config, io, wave
     from akbx_torch.utils import to_numpy
 
-    if getattr(args, "config", None):
-        raise NotImplementedError(
-            "--config: akbx.config is not ported yet (ROADMAP Queue 1, "
-            "item 12)")
+    if args.config:
+        wcfg = config.load_config(args.config)
+        args.wavelength = wcfg.wavelength_m
+        args.pallas = wcfg.use_pallas
     data = io.load_wave_data(args.data_dir)
     wavelength = args.wavelength
     cache = io.StageCache(args.out) if args.cache else None
@@ -119,6 +211,16 @@ def main(argv=None):
     parser = argparse.ArgumentParser(prog="akbx_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
+    p = sub.add_parser("trace", help="trace + wavefront + Legendre + PSF")
+    _add_system_args(p)
+    p.add_argument("--wavelength", type=float, default=13.5e-9)
+    p.add_argument("--defocus-wave", type=float, default=1e-2)
+    p.add_argument("--config", type=str, default=None,
+                   help="TraceConfig JSON (akbx_torch.config.save_config, "
+                        "or akbx's); overrides --rays/--wavelength/"
+                        "--defocus-wave")
+    p.set_defaults(fn=cmd_trace)
+
     p = sub.add_parser("export-wave", help="ray->wave handoff directory")
     _add_system_args(p)
     p.add_argument("--wavelength", type=float, default=13.5e-9)
@@ -135,9 +237,19 @@ def main(argv=None):
                    help="force the K3 kernel (the default backend 'auto' "
                         "runs it too)")
     p.add_argument("--config", type=str, default=None,
-                   help="WaveConfig JSON (not ported; raises)")
+                   help="WaveConfig JSON (akbx_torch.config.save_config, "
+                        "or akbx's)")
     _add_device_arg(p)
     p.set_defaults(fn=cmd_propagate)
+
+    p = sub.add_parser("align", help="sensitivity-matrix alignment solve")
+    _add_system_args(p)
+    p.add_argument("--indices", type=str, default="2,3",
+                   help="comma-separated misalignment param indices to solve")
+    p.add_argument("--mode", choices=["abrr", "KB"], default="abrr")
+    p.add_argument("--iters", type=int, default=1)
+    p.add_argument("--damping", type=float, default=1.0)
+    p.set_defaults(fn=cmd_align)
 
     args = parser.parse_args(argv)
     return args.fn(args)

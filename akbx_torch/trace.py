@@ -1,12 +1,16 @@
 """Batched sequential ray tracing through a mirror chain (port of
-:mod:`akbx.trace`: the f64 engine, with and without the exit-pupil
-re-fan, and the ``precision="pallas"`` fast engine without it).
+:mod:`akbx.trace`: the f64 engine and the ``precision="pallas"`` fast
+engine, each with and without the exit-pupil re-fan).
 
 Rays are ``(3, N)`` f64 tensors; invalid rays carry a boolean mask.  The
 fast engine traces one chief ray in f64 and every other ray as its exact
 deviation from the chief in double-f32, on the kernels K1 (bounce chain)
 and K2 (detector planes / OPL) of :mod:`akbx_torch.kernels.trace_kernel`;
 between them, the tilt-removal angles are a masked mean over all rays.
+Its backward is the autograd of a plain-f32 twin of the same deviation
+algebra (:func:`trace_dev32`, :func:`_fast_devs_f32`): the double-word
+error terms have near-zero derivatives, so the Jacobians agree to f32
+rounding, and the backward launches no kernel.
 """
 
 from __future__ import annotations
@@ -18,8 +22,9 @@ import torch
 from akbx_torch.core import geometry as geo
 from akbx_torch.core import precision as pr
 from akbx_torch.kernels import trace_kernel as tk
-from akbx_torch.surfaces import intersect_and_reflect
+from akbx_torch.surfaces import Mirror, intersect_and_reflect
 from akbx_torch.systems import OpticalSystem
+from akbx_torch.utils import linspace, non_uniform_distribution
 
 F32 = torch.float32
 F64 = torch.float64
@@ -43,15 +48,13 @@ def ray_fan(angles_h: torch.Tensor, angles_v: torch.Tensor) -> torch.Tensor:
 
 
 def fan_angles(fan: torch.Tensor, n: int, mode: str = "uniform"):
-    """``n`` equally spaced source angles across ``fan = (lo, hi)``
-    (``jnp.linspace``'s formula: lo (1 - s) + hi s, last point exact)."""
-    if mode != "uniform":
-        raise NotImplementedError(
-            f"fan_mode={mode!r} is not ported yet (ROADMAP Queue 1, item 8)")
-    if n == 1:
-        return fan[:1].clone()
-    s = torch.arange(n - 1, dtype=F64, device=fan.device) / (n - 1)
-    return torch.cat([fan[0] * (1 - s) + fan[1] * s, fan[1:2]])
+    """``n`` source angles across ``fan = (lo, hi)``: equally spaced
+    (``mode="uniform"``, :func:`akbx_torch.utils.linspace`), or the
+    reference's sigmoid-ramped sampling dense at the aperture edges
+    (``mode="edge_dense"``)."""
+    if mode == "edge_dense":
+        return non_uniform_distribution(fan[0], fan[1], n)
+    return linspace(fan[0], fan[1], n)
 
 
 class TraceResult(NamedTuple):
@@ -145,6 +148,234 @@ def _deviation_constants(system: OpticalSystem, P, D, T, chief_p0):
     branches = torch.stack([m.branch for m in system.mirrors])
     return (Ms, bvecs, Ds, Dns, Ts, A_noms, Bp_noms, rhos, gCs, gAs,
             branches, Ps)
+
+
+def _fast_scalars(system, rays, origins, chief_idx):
+    """Chief trace + deviation constants."""
+    chief_d0 = rays[:, chief_idx:chief_idx + 1]
+    chief_p0 = origins[:, chief_idx:chief_idx + 1]
+    chief = trace(system, chief_d0, chief_p0)
+    P = [p[:, 0] for p in chief.points]
+    D = [d[:, 0] for d in chief.directions]
+    T = [s[0] for s in chief.segments]
+    consts64 = _deviation_constants(system, P, D, T, chief_p0)
+    return chief_d0, chief_p0, consts64
+
+
+# --- the plain-f32 twin (the fast engine's backward) ----------------------
+# The 3x3 products are broadcasts and sums, never matmuls, so that they
+# stay true float32 whatever torch.backends.cuda.matmul.allow_tf32 says.
+
+def _mv(M, v):
+    """(3, 3) @ (3, N)."""
+    return M[:, 0:1] * v[0] + M[:, 1:2] * v[1] + M[:, 2:3] * v[2]
+
+
+def _dot(c, v):
+    """(3,) . (3, N) -> (N,)."""
+    return c[0] * v[0] + c[1] * v[1] + c[2] * v[2]
+
+
+def _dev32_scan(consts32, dp0, dd0):
+    """The deviation bounce chain in plain f32, one op for each double-word
+    op of K1.  Returns per-mirror lists (dqs, dds, normals, dts) and the
+    validity mask."""
+    (Ms, bvecs, Ds, Dns, Ts, A_noms, Bp_noms, rhos, gCs, gAs, branches,
+     _) = consts32
+    dp, dd = dp0, dd0
+    valid = torch.ones(dp0.shape[1], dtype=torch.bool, device=dp0.device)
+    dqs, dds, normals, dts = [], [], [], []
+    for m in range(Ms.shape[0]):
+        M, Ti = Ms[m], Ts[m]
+        Mdp = _mv(M, dp)
+        Mdd = _mv(M, dd)
+        dC = _dot(gCs[m], dp) + torch.sum(Mdp * dp, dim=0)
+        dA = _dot(gAs[m], dd) + torch.sum(Mdd * dd, dim=0)
+        dB = (_dot(gCs[m], dd) + _dot(gAs[m], dp)
+              + 2.0 * torch.sum(Mdp * dd, dim=0))
+        R = (dA * Ti + dB) * Ti + dC + rhos[m]
+        A_full = dA + A_noms[m]
+        Bp = 2.0 * dA * Ti + dB + Bp_noms[m]
+        disc = Bp * Bp - 4.0 * A_full * R
+        ok = disc > 0
+        sq = torch.sqrt(torch.where(ok, disc, 0.0))
+        b_pos = Bp >= 0
+        sgn = torch.where(b_pos, 1.0, -1.0).to(Bp.dtype)
+        qq = -0.5 * (Bp + sgn * sq)
+        safe_q = torch.where(qq != 0, qq, 1.0)
+        safe_A = torch.where(A_full != 0, A_full, 1.0)
+        t_plus = torch.where(b_pos, R / safe_q, qq / safe_A)
+        t_minus = torch.where(b_pos, qq / safe_A, R / safe_q)
+        dt = torch.where(branches[m] >= 0, t_plus, t_minus)
+        valid = valid & ok
+
+        d_full = dd + Ds[m][:, None]
+        dq = dp + Ti * dd + dt * d_full
+        nvec = bvecs[m][:, None] + 2.0 * _mv(M, dq)
+        n_unit = nvec / torch.sqrt(torch.sum(nvec * nvec, dim=0,
+                                             keepdim=True))
+        refl = d_full - 2.0 * torch.sum(d_full * n_unit, dim=0) * n_unit
+        dd = refl - Dns[m][:, None]
+        dp = dq
+        dqs.append(dq)
+        dds.append(dd)
+        normals.append(n_unit)
+        dts.append(dt)
+    return dqs, dds, normals, dts, valid
+
+
+def _dev32_trace(system, rays, origins, chief_idx: int):
+    """f64 chief constants and the plain-f32 deviation chain of every ray:
+    ``(consts64, (dqs, dds, normals, dts, valid))``."""
+    chief_d0, chief_p0, consts64 = _fast_scalars(system, rays, origins,
+                                                 chief_idx)
+    consts32 = tuple(c.to(F32) for c in consts64)
+    return consts64, _dev32_scan(consts32, (origins - chief_p0).to(F32),
+                                 (rays - chief_d0).to(F32))
+
+
+def trace_dev32(system: OpticalSystem, rays: torch.Tensor,
+                origins: torch.Tensor, chief_idx: int | None = None
+                ) -> TraceResult:
+    """The deviation trace in plain single f32: the algebra of K1 with
+    every double-word op replaced by one f32 op.  Its values are only
+    f32-grade, but its Jacobian equals the f64 engine's to f32 rounding,
+    which is what the fast engine's backward needs.  Same contract as
+    :func:`trace`."""
+    if chief_idx is None:
+        chief_idx = rays.shape[1] // 2
+    consts64, (dqs, dds, normals, dts, valid) = _dev32_trace(
+        system, rays, origins, chief_idx)
+    Ps, Dns, Ts = consts64[-1], consts64[3], consts64[4]
+    n_mirr = Ps.shape[0]
+    return TraceResult(
+        tuple(Ps[i][:, None] + dqs[i].to(F64) for i in range(n_mirr)),
+        (rays,) + tuple(Dns[i][:, None] + dds[i].to(F64)
+                        for i in range(n_mirr)),
+        tuple(n.to(F64) for n in normals),
+        tuple(Ts[i] + dts[i].to(F64) for i in range(n_mirr)), valid)
+
+
+def _tensors_of(system: OpticalSystem) -> list:
+    """The mirrors' tensors, in order: the differentiable inputs of the
+    fast engine's autograd nodes."""
+    return [t for m in system.mirrors for t in m]
+
+
+class _TwinVJP(torch.autograd.Function):
+    """The kernels forward, the VJP of their plain-f32 twin backward.
+
+    A subclass's ``forward(ctx, static, *tensors)`` runs the kernels and
+    returns through :meth:`keep`; ``static`` holds the system and the
+    other non-tensor arguments, ``tensors`` the differentiable ones with
+    the system's own tensors (:func:`_tensors_of`) last.  The backward
+    rebuilds the system on detached copies of those tensors, runs the
+    twin under autograd at the same inputs and returns the VJP of the
+    outputs that received a cotangent.  It launches no kernel."""
+
+    @staticmethod
+    def keep(ctx, twin, static, tensors, outs):
+        ctx.twin, ctx.static = twin, static
+        ctx.save_for_backward(*tensors)
+        ctx.mark_non_differentiable(
+            *[o for o in outs if not o.is_floating_point()])
+        # the twin's lo words are constants and most outputs go unused:
+        # their cotangents stay None instead of tensors of zeros
+        ctx.set_materialize_grads(False)
+        return outs
+
+    @staticmethod
+    def backward(ctx, *grads):
+        system = ctx.static[0]
+        with torch.enable_grad():
+            args = [t.detach().requires_grad_(need) for t, need in
+                    zip(ctx.saved_tensors, ctx.needs_input_grad[1:])]
+            k = len(Mirror._fields)
+            sys_t = args[len(args) - k * len(system.mirrors):]
+            mirrors = tuple(Mirror(*sys_t[i:i + k])
+                            for i in range(0, len(sys_t), k))
+            outs = ctx.twin(system._replace(mirrors=mirrors),
+                            *args[:len(args) - len(sys_t)], *ctx.static[1:])
+        pairs = [(o, g) for o, g in zip(outs, grads)
+                 if g is not None and o is not None and o.requires_grad]
+        wrt = [a for a in args if a.requires_grad]
+        got = [None] * len(wrt)
+        if pairs and wrt:
+            got = torch.autograd.grad([o for o, _ in pairs], wrt,
+                                      [g for _, g in pairs],
+                                      allow_unused=True)
+        got = iter(got)
+        return (None, *[next(got) if a.requires_grad else None
+                        for a in args])
+
+
+def _k1(system, rays, origins, chief_idx: int):
+    """f64 chief constants and K1 on every ray: ``(consts64, K1's
+    outputs)`` (:func:`akbx_torch.kernels.trace_kernel.trace_deviation`)."""
+    chief_d0, chief_p0, consts64 = _fast_scalars(system, rays, origins,
+                                                 chief_idx)
+    (Ms, bvecs, Ds, Dns, Ts, A_noms, Bp_noms, rhos, gCs, gAs, branches,
+     Ps) = consts64
+    consts = tk.pack_consts(Ms, gCs, gAs, Ds, Dns, Ts, A_noms, Bp_noms,
+                            rhos, branches, bvecs)
+    return consts64, tk.trace_deviation(consts, origins - chief_p0,
+                                        rays - chief_d0, Ps.shape[0])
+
+
+def _trace_pallas_forward(system, rays, origins, chief_idx: int):
+    """K1 on the whole fan: (dq_hi, dq_lo, od_hi, od_lo, dt_hi, dt_lo,
+    valid, P_chief, D_chief, T_chief)."""
+    consts64, out = _k1(system, rays, origins, chief_idx)
+    return (*out[:6], out[8][0] > 0.5, consts64[-1], consts64[3],
+            consts64[4])
+
+
+def _trace_pallas_f32(system, rays, origins, chief_idx: int):
+    """Plain-f32 twin of :func:`_trace_pallas_forward` (lo words None)."""
+    consts64, (dqs, dds, _, dts, valid) = _dev32_trace(system, rays,
+                                                       origins, chief_idx)
+    return (torch.cat(dqs), None, torch.cat(dds), None, torch.stack(dts),
+            None, valid, consts64[-1], consts64[3], consts64[4])
+
+
+class _TracePallas(_TwinVJP):
+    @staticmethod
+    def forward(ctx, static, rays, origins, *system_tensors):
+        system, chief_idx = static
+        return _TwinVJP.keep(ctx, _trace_pallas_f32, static,
+                             (rays, origins, *system_tensors),
+                             _trace_pallas_forward(system, rays, origins,
+                                                   chief_idx))
+
+
+def _materialize(system, rays, Ps, Dns, Ts, dq_hi, dq_lo, od_hi, od_lo,
+                 dt_hi, dt_lo, valid) -> TraceResult:
+    """The f64 :class:`TraceResult` of deviation outputs: each chief value
+    plus its ray's deviation; normals in f64 from the placed quadrics."""
+    points, dirs, normals, segs = [], [rays], [], []
+    for m in range(Ps.shape[0]):
+        rows = slice(3 * m, 3 * m + 3)
+        pts = Ps[m][:, None] + _f64_of(dq_hi[rows], dq_lo[rows])
+        points.append(pts)
+        dirs.append(Dns[m][:, None] + _f64_of(od_hi[rows], od_lo[rows]))
+        normals.append(geo.surface_normal(system.mirrors[m].coeffs, pts))
+        segs.append(Ts[m] + _f64_of(dt_hi[m], dt_lo[m]))
+    return TraceResult(tuple(points), tuple(dirs), tuple(normals),
+                       tuple(segs), valid)
+
+
+def trace_pallas(system: OpticalSystem, rays: torch.Tensor,
+                 origins: torch.Tensor, chief_idx: int | None = None
+                 ) -> LazyTraceResult:
+    """The fast trace: K1 forward, the VJP of :func:`trace_dev32`'s
+    deviation chain backward.  Same contract as :func:`trace`, its f64
+    fields materialized on first access."""
+    if chief_idx is None:
+        chief_idx = rays.shape[1] // 2
+    out = _TracePallas.apply((system, int(chief_idx)), rays, origins,
+                             *_tensors_of(system))
+    return LazyTraceResult(
+        lambda: _materialize(system, rays, *out[7:], *out[:7]))
 
 
 class FastDevOut(NamedTuple):
@@ -250,18 +481,6 @@ def _det_plane_scalars(P4r, D4r, det_x):
     return t_c, det_c, L
 
 
-def _fast_scalars(system, rays, origins, chief_idx):
-    """Chief trace + deviation constants."""
-    chief_d0 = rays[:, chief_idx:chief_idx + 1]
-    chief_p0 = origins[:, chief_idx:chief_idx + 1]
-    chief = trace(system, chief_d0, chief_p0)
-    P = [p[:, 0] for p in chief.points]
-    D = [d[:, 0] for d in chief.directions]
-    T = [s[0] for s in chief.segments]
-    consts64 = _deviation_constants(system, P, D, T, chief_p0)
-    return chief_d0, chief_p0, consts64
-
-
 def _fast_post_scalars(consts64, det_x, det_x2, theta_y, theta_z, focus,
                        tilt: bool):
     """Rotation + per-plane chief constants of the detector stage."""
@@ -286,16 +505,10 @@ def _fast_devs_forward(system, rays, origins, det_x, det_x2, chief_idx: int,
                        tilt: bool, tilt_mode: str) -> FastDevOut:
     """Deviation-level fast engine: K1, the tilt reductions, K2 (both
     detector planes in one launch)."""
-    chief_d0, chief_p0, consts64 = _fast_scalars(system, rays, origins,
-                                                 chief_idx)
-    (Ms, bvecs, Ds, Dns, Ts, A_noms, Bp_noms, rhos, gCs, gAs, branches,
-     Ps) = consts64
+    consts64, (dq_hi, dq_lo, od_hi, od_lo, dt_hi, dt_lo, dsum_hi, dsum_lo,
+               val) = _k1(system, rays, origins, chief_idx)
+    Ps, Dns, Ts = consts64[-1], consts64[3], consts64[4]
     n_mirr = Ps.shape[0]
-    consts = tk.pack_consts(Ms, gCs, gAs, Ds, Dns, Ts, A_noms, Bp_noms,
-                            rhos, branches, bvecs)
-    (dq_hi, dq_lo, od_hi, od_lo, dt_hi, dt_lo, dsum_hi, dsum_lo,
-     val) = tk.trace_deviation(consts, origins - chief_p0, rays - chief_d0,
-                               n_mirr)
     valid = val[0] > 0.5
     s = slice(3 * (n_mirr - 1), 3 * n_mirr)
     q4_hi, q4_lo = dq_hi[s], dq_lo[s]
@@ -321,33 +534,64 @@ def _fast_devs_forward(system, rays, origins, det_x, det_x2, chief_idx: int,
                       P4r, D4r, det_c, det_c2, total_chief, total2_chief)
 
 
-class _FastDevs(torch.autograd.Function):
-    """The fast engine as one autograd node.  Its backward (autograd of a
-    plain-f32 twin, ``akbx.trace._fast_devs_f32``) is not ported yet, so
-    it raises instead of returning a wrong gradient."""
+def _det_stage_f32(R, D4r, t_c, L, dq32, dd32, dsum32):
+    """Plain-f32 twin of K2's deviation algebra, one detector plane:
+    (ddet, dqr, ddr, dtot)."""
+    R32, D432 = R.to(F32), D4r.to(F32)
+    tc32, L32 = t_c.to(F32), L.to(F32)
+    dqr = _mv(R32, dq32)
+    ddr = _mv(R32, dd32)
+    dt = -(dqr[0] + tc32 * ddr[0]) / (D432[0] + ddr[0])
+    delta = tc32 * ddr + dt * (D432[:, None] + ddr)
+    u = (2.0 * tc32 * _dot(D432, delta)
+         + torch.sum(delta * delta, dim=0))
+    dlast = u / (L32 + torch.sqrt(torch.clamp_min(L32 * L32 + u, 0.0)))
+    return dqr + delta, dqr, ddr, dsum32 + dlast
+
+
+def _fast_devs_f32(system, rays, origins, det_x, det_x2, chief_idx: int,
+                   tilt: bool, tilt_mode: str) -> FastDevOut:
+    """Plain-f32 twin of :func:`_fast_devs_forward`: the same chief
+    scalars, every per-ray stage in plain f32, the lo words None (the
+    double-word error terms, whose derivatives the twin drops)."""
+    consts64, (dqs, dds, _, dts, valid) = _dev32_trace(system, rays,
+                                                       origins, chief_idx)
+    dq4, dd4 = dqs[-1], dds[-1]
+    dt = torch.stack(dts)
+    Ps, Dns, Ts = consts64[-1], consts64[3], consts64[4]
+    theta_y, theta_z = _tilt_stats(Dns[-1], dd4, valid, tilt, tilt_mode)
+    focus = _pre_tilt_focus(Ps[-1], Dns[-1], det_x, dq4, dd4, valid)
+    (R, P4r, D4r, t_c, det_c, L, t_c2, det_c2, L2, total_chief,
+     total2_chief) = _fast_post_scalars(consts64, det_x, det_x2,
+                                        theta_y, theta_z, focus, tilt)
+    dsum = torch.sum(dt, dim=0)
+    ddet, dqr, ddr, dtot = _det_stage_f32(R, D4r, t_c, L, dq4, dd4, dsum)
+    ddet2, _, _, dtot2 = _det_stage_f32(R, D4r, t_c2, L2, dq4, dd4, dsum)
+    return FastDevOut(torch.cat(dqs), None, torch.cat(dds), None, dt, None,
+                      ddet, None, ddet2, None, dqr, None, ddr, None,
+                      dtot, None, dtot2, None, valid, theta_y, theta_z,
+                      focus, Ps, Dns, Ts, P4r, D4r, det_c, det_c2,
+                      total_chief, total2_chief)
+
+
+class _FastDevs(_TwinVJP):
+    """The fast engine as one autograd node: K1, the tilt reductions and
+    K2 forward; the VJP of :func:`_fast_devs_f32` backward."""
 
     @staticmethod
-    def forward(ctx, system, rays, origins, det_x, det_x2, chief_idx, tilt,
-                tilt_mode, *system_tensors):
-        return tuple(_fast_devs_forward(system, rays, origins, det_x, det_x2,
-                                        chief_idx, tilt, tilt_mode))
-
-    @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "the backward of the fast engine (the plain-f32 twin "
-            "_fast_devs_f32 + _dev32_scan) is not ported yet "
-            "(ROADMAP Queue 1, item 6)")
+    def forward(ctx, static, rays, origins, det_x, det_x2, *system_tensors):
+        outs = tuple(_fast_devs_forward(static[0], rays, origins, det_x,
+                                        det_x2, *static[1:]))
+        return _TwinVJP.keep(ctx, _fast_devs_f32, static,
+                             (rays, origins, det_x, det_x2, *system_tensors),
+                             outs)
 
 
 def _fast_devs(system, rays, origins, det_x, det_x2, chief_idx: int,
                tilt: bool, tilt_mode: str) -> FastDevOut:
-    # the system's tensors go in as arguments too, so that a gradient
-    # through any of them reaches _FastDevs.backward
-    system_tensors = [t for m in system.mirrors for t in m]
-    return FastDevOut(*_FastDevs.apply(system, rays, origins, det_x, det_x2,
-                                       chief_idx, tilt, tilt_mode,
-                                       *system_tensors))
+    return FastDevOut(*_FastDevs.apply((system, chief_idx, tilt, tilt_mode),
+                                       rays, origins, det_x, det_x2,
+                                       *_tensors_of(system)))
 
 
 def _f64_of(hi, lo):
@@ -366,6 +610,8 @@ def run_fast(system: OpticalSystem, rays, origins, det_x, det_x2,
     """
     if chief_idx is None:
         chief_idx = rays.shape[1] // 2
+    det_x, det_x2 = (torch.as_tensor(x, dtype=F64, device=rays.device)
+                     for x in (det_x, det_x2))
     d = _fast_devs(system, rays, origins, det_x, det_x2, int(chief_idx),
                    bool(tilt_correction), str(tilt_mode))
 
@@ -383,22 +629,15 @@ def run_fast(system: OpticalSystem, rays, origins, det_x, det_x2,
     w32_2 = (d.dtot2_hi - mh2) + (d.dtot2_lo - ml2)
 
     def materialize() -> TraceResult:
-        n_mirr = d.P_chief.shape[0]
-        points, dirs, normals, segs = [], [rays], [], []
-        for m in range(n_mirr):
-            rows = slice(3 * m, 3 * m + 3)
-            pts = d.P_chief[m][:, None] + _f64_of(d.dq_hi[rows],
-                                                  d.dq_lo[rows])
-            points.append(pts)
-            dirs.append(d.D_chief[m][:, None] + _f64_of(d.od_hi[rows],
-                                                        d.od_lo[rows]))
-            normals.append(geo.surface_normal(system.mirrors[m].coeffs, pts))
-            segs.append(d.T_chief[m] + _f64_of(d.dt_hi[m], d.dt_lo[m]))
+        tr = _materialize(system, rays, d.P_chief, d.D_chief, d.T_chief,
+                          d.dq_hi, d.dq_lo, d.od_hi, d.od_lo, d.dt_hi,
+                          d.dt_lo, d.valid)
         # the tilt-corrected exit point/dir replace the last mirror's
-        points[-1] = d.P4r[:, None] + _f64_of(d.dqr_hi, d.dqr_lo)
-        dirs[-1] = d.D4r[:, None] + _f64_of(d.ddr_hi, d.ddr_lo)
-        return TraceResult(tuple(points), tuple(dirs), tuple(normals),
-                           tuple(segs), d.valid)
+        return tr._replace(
+            points=tr.points[:-1] + (d.P4r[:, None]
+                                     + _f64_of(d.dqr_hi, d.dqr_lo),),
+            directions=tr.directions[:-1] + (d.D4r[:, None]
+                                             + _f64_of(d.ddr_hi, d.ddr_lo),))
 
     return {
         "detcenter": detcenter, "detcenter2": detcenter2,
@@ -413,18 +652,19 @@ def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor):
     """``jnp.interp(x, xp, fp)``: piecewise-linear through increasing
     ``xp``, clamped to ``fp[0]`` / ``fp[-1]`` outside, the same formula
     (searchsorted on the right, a zero-width interval takes its left
-    value)."""
+    value).  Leading dimensions, the same in all three, are a batch of
+    independent rows."""
     i = torch.clamp(torch.searchsorted(xp.contiguous(), x.contiguous(),
-                                       right=True), 1, xp.shape[0] - 1)
-    df = fp[i] - fp[i - 1]
-    dx = xp[i] - xp[i - 1]
-    delta = x - xp[i - 1]
+                                       right=True), 1, xp.shape[-1] - 1)
+    xp0, xp1 = torch.gather(xp, -1, i - 1), torch.gather(xp, -1, i)
+    fp0, fp1 = torch.gather(fp, -1, i - 1), torch.gather(fp, -1, i)
+    dx = xp1 - xp0
     # np.spacing(eps), which is eps**2: eps is a power of two
     dx0 = torch.abs(dx) <= torch.finfo(xp.dtype).eps ** 2
-    f = torch.where(dx0, fp[i - 1],
-                    fp[i - 1] + (delta / torch.where(dx0, 1.0, dx)) * df)
-    f = torch.where(x < xp[0], fp[0], f)
-    return torch.where(x > xp[-1], fp[-1], f)
+    f = torch.where(dx0, fp0,
+                    fp0 + ((x - xp0) / torch.where(dx0, 1.0, dx)) * (fp1 - fp0))
+    f = torch.where(x < xp[..., :1], fp[..., :1], f)
+    return torch.where(x > xp[..., -1:], fp[..., -1:], f)
 
 
 def exit_pupil_uniform_angles(result: TraceResult, rand_p0h, rand_p0v,
@@ -454,7 +694,7 @@ def exit_pupil_uniform_angles(result: TraceResult, rand_p0h, rand_p0v,
     ah = angle_h[center_row]
 
     def remap(a_exit, a_in, n):
-        eq = fan_angles(torch.stack([a_exit[0], a_exit[-1]]), n)  # linspace
+        eq = linspace(a_exit[0], a_exit[-1], n)
         sign = torch.where(a_exit[-1] >= a_exit[0], 1.0, -1.0).to(F64)
         return interp(sign * eq, sign * a_exit, a_in)
 
@@ -535,17 +775,13 @@ def run(system: OpticalSystem, n_h: int, n_v: int, defocus,
     """Full engine pass: fan -> trace -> tilt removal -> detector planes
     -> OPL -> wavefront, on the device of ``system``.
 
-    Ported: ``precision="pallas"`` (the deviation kernels) with
-    ``exit_pupil_uniform=False``, and ``precision="f64"`` with or without
-    the exit-pupil re-fan (trace, re-derive the source angles on the
-    ``uniform_stage`` directions, re-trace).  Every other combination
-    raises ``NotImplementedError`` naming its ROADMAP item.
+    ``precision="pallas"`` runs the deviation kernels, ``"f64"`` the f64
+    engine; either with or without the exit-pupil re-fan (trace,
+    re-derive the source angles on the ``uniform_stage`` directions,
+    re-trace: on the fast path the first trace is :func:`trace_pallas`).
+    ``precision="df32"``, ray sharding and figure errors raise
+    ``NotImplementedError`` naming their ROADMAP item.
     """
-    if exit_pupil_uniform and precision == "pallas":
-        raise NotImplementedError(
-            "exit_pupil_uniform=True with precision='pallas' needs "
-            "trace_pallas, which is not ported yet (ROADMAP Queue 1, "
-            "item 8); use precision='f64' or exit_pupil_uniform=False")
     if ray_sharding is not None:
         raise NotImplementedError(
             "ray sharding is not ported yet (ROADMAP Queue 1, item 14)")
@@ -565,6 +801,11 @@ def run(system: OpticalSystem, n_h: int, n_v: int, defocus,
     det_x = system.s2f_middle + defocus
 
     if precision == "pallas":
+        if exit_pupil_uniform:
+            pre = trace_pallas(system, rays, src)
+            rand_p0h, rand_p0v = exit_pupil_uniform_angles(
+                pre, rand_p0h, rand_p0v, n_h, n_v, stage=uniform_stage)
+            rays = ray_fan(rand_p0h, rand_p0v)
         out = run_fast(system, rays, src, det_x, det_x + defocus_wave,
                        tilt_correction=tilt_correction, tilt_mode=tilt_mode)
         v = out["valid"]
@@ -606,6 +847,16 @@ def run(system: OpticalSystem, n_h: int, n_v: int, defocus,
     wave2 = _wave2(detcenter, detcenter2, total2, v)
     return EngineResult(result, detcenter, detcenter2, total, total2, wave2,
                         v, theta_y, theta_z, focus_apprx, rand_p0h, rand_p0v)
+
+
+def run_config(system: OpticalSystem, cfg, defocus) -> EngineResult:
+    """Run the engine from a :class:`akbx_torch.config.TraceConfig`."""
+    return run(system, cfg.n_rays_h, cfg.n_rays_v, defocus,
+               defocus_wave=cfg.defocus_for_wave,
+               exit_pupil_uniform=cfg.exit_pupil_uniform,
+               tilt_correction=cfg.tilt_correction,
+               tilt_mode=cfg.tilt_mode, fan_mode=cfg.fan_mode,
+               precision=cfg.precision)
 
 
 def spot_size(detcenter: torch.Tensor, valid: torch.Tensor):

@@ -1,5 +1,6 @@
-"""Engine utilities (port of the part of :mod:`akbx.utils` that the wave
-path calls): power-of-2 grid decimation and stage timers."""
+"""Engine utilities (port of :mod:`akbx.utils`): ``jnp.linspace``'s
+formula, thinned index lists, the edge-dense sigmoid fan, ray angles, grid
+pitches, power-of-2 grid decimation and stage timers."""
 
 from __future__ import annotations
 
@@ -15,6 +16,69 @@ def to_numpy(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def linspace(lo, hi, n: int, like: torch.Tensor | None = None):
+    """``jnp.linspace(lo, hi, n)`` in float64, bit for bit: ``lo (1 - s) +
+    hi s`` with ``s = i / (n - 1)``, the last point exactly ``hi``.  The
+    result is on the device of ``lo``, ``hi`` or ``like``, whichever is a
+    tensor first (``torch.linspace`` rounds otherwise).  Differentiable in
+    ``lo`` and ``hi``."""
+    dev = next((t.device for t in (lo, hi, like)
+                if isinstance(t, torch.Tensor)), torch.device("cpu"))
+    lo = torch.as_tensor(lo, dtype=torch.float64, device=dev)
+    hi = torch.as_tensor(hi, dtype=torch.float64, device=dev)
+    if n == 1:
+        return lo.reshape(1)
+    s = torch.arange(n - 1, dtype=torch.float64, device=dev) / (n - 1)
+    return torch.cat([lo * (1 - s) + hi * s, hi.reshape(1)])
+
+
+def crop_indices(start: int, end: int, step: int):
+    """Thinned index list (the reference's ``crop``)."""
+    return list(range(end + 1))[start:end:step]
+
+
+def sigmoid(x):
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def non_uniform_distribution(start, end, num_points: int):
+    """Edge-dense sampling of ``[start, end]`` through a sigmoid ramp (the
+    reference's ``create_non_uniform_distribution``)."""
+    s = sigmoid(linspace(-6.0, 6.0, num_points, like=start))
+    scaled = (s - s.min()) / (s.max() - s.min())
+    return start + (end - start) * scaled
+
+
+def angle_between(ray1: torch.Tensor, ray2: torch.Tensor):
+    """Angles between two (3, N) ray batches, and the per-ray y/x and z/x
+    angles of ``ray1`` (NaN where its x component is 0).
+    Returns (angle_between (N,), angle_yx (N,), angle_zx (N,))."""
+    dot = torch.sum(ray1 * ray2, dim=0)
+    cx = ray1[1] * ray2[2] - ray1[2] * ray2[1]
+    cy = ray1[2] * ray2[0] - ray1[0] * ray2[2]
+    cz = ray1[0] * ray2[1] - ray1[1] * ray2[0]
+    cross = torch.sqrt(cx**2 + cy**2 + cz**2)
+    between = torch.atan2(cross, dot)
+    ok = ray1[0] != 0
+    nan = torch.full_like(dot, float("nan"))
+    yx = torch.where(ok, torch.atan2(ray1[1], ray1[0]), nan)
+    zx = torch.where(ok, torch.atan2(ray1[2], ray1[0]), nan)
+    return between, yx, zx
+
+
+def data_pitch(points: torch.Tensor, n_v: int, n_h: int):
+    """Mean grid pitches of a (3, N) surface grid in y and z (the
+    reference's ``CalcDataPitch``, returning the values)."""
+    y = points[1].reshape(n_v, n_h)
+    z = points[2].reshape(n_v, n_h)
+    return {
+        "dy_rows": float(torch.mean(torch.diff(y, dim=0))),
+        "dy_cols": float(torch.mean(torch.diff(y, dim=1))),
+        "dz_rows": float(torch.mean(torch.diff(z, dim=0))),
+        "dz_cols": float(torch.mean(torch.diff(z, dim=1))),
+    }
 
 
 def downsample_grid(array, n_v: int, n_h: int, down_h: int = 0,

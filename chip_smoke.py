@@ -37,7 +37,22 @@ Phases, one printed line or more each:
      twin on the CPU;
   9. times: each stage of the wave chain and the chain (median of 3), the
      handoff, K3 alone beside its twin and the f64 path, peak memory; and
-     K3 against its twin on the full M4 -> Image stage.
+     K3 against its twin on the full M4 -> Image stage;
+ 10. the bench step forward and backward at 2048x2048 (the gradient of the
+     bench loss with respect to the 26-vector): K1 and K2 once each, the
+     backward (the plain-f32 twin's VJP) no kernel; the gradient against
+     the port's f64 engine's, and the deviation-field loss's against the
+     f64-field loss's (akbx's pairs, bar 1e-3); a 9x9 gradient on the card
+     against the CPU's; times (median of 10): the step, rays/s, peak
+     memory, and its split into build, forward, the trace's backward and
+     the build's backward;
+ 11. cli trace at 257x257 from a TraceConfig with precision="pallas"
+     (autofocus at 21, the re-fan: K1 twice, K2 once), the same run at
+     precision="f64" (|wave2| apart <= 1 nm), and the time of each stage:
+     trace, wavefront_grid, Legendre, PSF;
+ 12. cli align at 21 rays (indices 2,3: the astigmatism must fall), then
+     gradient_align, 20 Adam steps on the bench loss at 2048x2048 over the
+     four pitches from the seeded misalignment (the loss must fall).
 Then a JSON line of the kernels, each with its bound: the larger of its
 bytes over 3.35e12 B/s and its f32 operations over 3.35e13 op/s (the H100
 SXM's 67 TFLOP/s f32 counts an FMA as two operations).  The operations
@@ -49,6 +64,7 @@ last line
 """
 
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -662,6 +678,267 @@ def phase9_times(dev, w, hk):
             "bound_by": bound_by, "max_abs_err": full_err}
 
 
+def bench_loss(res):
+    """bench_common.make_step's pallas loss, on the f32 deviation fields."""
+    from akbx_torch import trace
+
+    sy, sz = trace.spot_size(res.ddet32, res.valid)
+    return (torch.sum(torch.where(res.valid, res.w32, 0.0) ** 2) * 1e18
+            + sy + sz)
+
+
+def f64_field_loss(res):
+    """The same objective on the f64 fields (make_step's f64 loss)."""
+    from akbx_torch import trace
+
+    w = res.total_dist - trace.masked_mean(res.total_dist, res.valid)
+    sy, sz = trace.spot_size(res.detcenter, res.valid)
+    return torch.sum(torch.where(res.valid, w, 0.0) ** 2) * 1e18 + sy + sz
+
+
+def grad_rel(g, ref):
+    """Largest |g - ref| over max(|ref|, 1e-6 of ref's largest entry)."""
+    scale = ref.abs().max()
+    return float(((g - ref).abs()
+                  / torch.clamp_min(ref.abs(), 1e-6 * scale)).max())
+
+
+def build_system(v):
+    from akbx_torch.systems import (AlignParams, WOLTER_3_1_DEFAULT,
+                                    build_wolter_3_1)
+
+    return build_wolter_3_1(WOLTER_3_1_DEFAULT, AlignParams.from_vector(v))
+
+
+def grad_step(vec, n, loss_of=bench_loss, precision="pallas"):
+    """One forward-and-backward step of the bench: build from the
+    26-vector, trace.run at n x n, the loss, its gradient."""
+    from akbx_torch import trace
+
+    v = vec.detach().clone().requires_grad_(True)
+    res = trace.run(build_system(v), n, n, defocus=v[0],
+                    exit_pupil_uniform=False, tilt_correction=True,
+                    precision=precision)
+    loss = loss_of(res)
+    loss.backward()
+    return loss.detach(), v.grad
+
+
+def staged_step(vec, marks):
+    """``grad_step`` cut by CUDA events into system build, forward (run +
+    loss), the trace's backward (the twin's VJP, down to the mirrors'
+    tensors) and the build's backward (the double-f64 placement)."""
+    from akbx_torch import trace
+    from akbx_torch.surfaces import Mirror
+
+    v = vec.detach().clone().requires_grad_(True)
+    marks.mark(None)
+    system = build_system(v)
+    marks.mark("system build")
+    tensors = trace._tensors_of(system)
+    leaves = [t.detach().requires_grad_(t.requires_grad) for t in tensors]
+    k = len(Mirror._fields)
+    mirrors = tuple(Mirror(*leaves[i:i + k]) for i in range(0, len(leaves), k))
+    res = trace.run(system._replace(mirrors=mirrors), N_SIDE, N_SIDE,
+                    defocus=v[0], exit_pupil_uniform=False,
+                    tilt_correction=True, precision="pallas")
+    loss = bench_loss(res)
+    marks.mark("forward (run + loss)")
+    need = [i for i, t in enumerate(tensors) if t.requires_grad]
+    loss.backward(inputs=[v] + [leaves[i] for i in need])
+    marks.mark("trace backward (twin VJP)")
+    reached = [i for i in need if leaves[i].grad is not None]
+    torch.autograd.backward([tensors[i] for i in reached],
+                            [leaves[i].grad for i in reached])
+    marks.mark("build backward")
+    return loss.detach(), v.grad
+
+
+def phase10_fwd_bwd(dev, vec, tk, hk):
+    """The bench step, forward and backward, at N_SIDE x N_SIDE."""
+    n_rays = N_SIDE ** 2
+    reset_counts(tk, hk)
+    loss, g = grad_step(vec, N_SIDE)
+    torch.cuda.synchronize()
+    launched = counts(tk, hk)
+    check(launched == {"K1": 1, "K2": 1, "K3": 0},
+          f"the fwd+bwd step launched {launched}, want K1 once, K2 once")
+    check(bool(torch.isfinite(g).all()), "non-finite gradient")
+    print(f"[10] fwd+bwd step {N_SIDE}x{N_SIDE}: launches {launched}; loss "
+          f"{float(loss):.9e}; gradient {g.cpu().numpy().tolist()}",
+          flush=True)
+
+    # akbx's pairs of tests/test_trace_pallas.py, at the bench's size
+    _, g_fast64 = grad_step(vec, N_SIDE, f64_field_loss)
+    _, g_f64 = grad_step(vec, N_SIDE, f64_field_loss, "f64")
+    r_engine = grad_rel(g_fast64, g_f64)
+    r_loss = grad_rel(g, g_fast64)
+    print(f"[10] gradients at {N_SIDE}x{N_SIDE}, largest |g - g_ref| / "
+          f"max(|g_ref|, 1e-6 of its largest): f64-field loss, fast path "
+          f"vs the f64 engine {r_engine:.3e}; deviation-field loss vs "
+          f"f64-field loss, fast path {r_loss:.3e} (bars 1e-3)", flush=True)
+    check(r_engine < 1e-3 and r_loss < 1e-3,
+          "fast-path gradient vs its references beyond 1e-3")
+    del g_fast64, g_f64
+
+    small = [grad_step(vec.to(d), 9)[1].cpu()
+             for d in (dev, torch.device("cpu"))]
+    r_small = grad_rel(small[0], small[1])
+    print(f"[10] 9x9 gradient on the card vs on the CPU: {r_small:.3e} "
+          "(bar 1e-3)", flush=True)
+    check(r_small < 1e-3, "9x9 gradient, card vs CPU")
+
+    # times: the step, then the same step cut at its stage boundaries
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    step_ms = time_ms(lambda: grad_step(vec, N_SIDE))
+    peak_gb = (torch.cuda.max_memory_allocated() - live) / 1e9
+    marks = StageMarks(tk)
+    runs = []
+    for rep in range(REPS + 2):
+        marks.events.clear()
+        torch.cuda.synchronize()
+        _, g_staged = staged_step(vec, marks)
+        torch.cuda.synchronize()
+        if rep >= 2:
+            runs.append(marks.spans())
+    check(grad_rel(g_staged, g) < 1e-9, "the staged step's gradient differs")
+    split = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    print(f"[10] fwd+bwd step {step_ms:.3f} ms (median of {REPS}), "
+          f"{n_rays / (step_ms / 1e3):.6e} rays/s, peak memory "
+          f"{peak_gb:.3f} GB; split (ms, median of {REPS}): "
+          + "; ".join(f"{k} {v:.3f}" for k, v in split.items()), flush=True)
+    return launched
+
+
+def phase11_cli_trace(dev, vec, base, tk, hk):
+    """cli trace at W_SIDE x W_SIDE from a TraceConfig with the fast
+    engine: autofocus at 21, the re-fan, wavefront, Legendre, PSF."""
+    import contextlib
+    import io as _io
+
+    from akbx_torch import cli, config, io, trace, wavefront
+    from akbx_torch.analysis import legendre, psf, rectify
+    from akbx_torch.systems import AlignParams
+
+    cfg = config.TraceConfig(n_rays_h=W_SIDE, n_rays_v=W_SIDE,
+                             defocus_for_wave=1e-2, precision="pallas")
+    path = os.path.join(base, "trace.json")
+    config.save_config(cfg, path)
+    io.write_optical_params(base, vec)
+    reset_counts(tk, hk)
+    buf = _io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["trace", "--config", path, "--params",
+                       os.path.join(base, "optical_params.txt"), "--out",
+                       base, "--device", str(dev)])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launched = counts(tk, hk)
+    summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+    print(f"[11] cli trace {W_SIDE}x{W_SIDE} (TraceConfig precision="
+          f"'pallas', autofocus at 21): rc {rc}, launches {launched}, "
+          f"{cli_s:.3f} s host clock; {summary}", flush=True)
+    check(rc == 0 and launched == {"K1": 2, "K2": 1, "K3": 0},
+          f"cli trace launched {launched}, want K1 twice and K2 once")
+    check(summary["valid_rays"] == W_SIDE ** 2, "cli trace lost rays")
+
+    # the same run, stage by stage, and at precision='f64'
+    p = AlignParams.from_vector(io.read_optical_params(
+        os.path.join(summary["out_dir"], "optical_params.txt")), device=dev)
+    system = build_system(p.to_vector())
+    lam_nm = cfg.energy.wavelength_nm
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    res = trace.run_config(system, cfg, defocus=p.defocus)
+    ev[1].record()
+    mat, gy, gz = wavefront.wavefront_grid(res, W_SIDE, W_SIDE)
+    ev[2].record()
+    rect = rectify.extract_square_region(mat / lam_nm, W_SIDE)
+    fits, ips, _ = legendre.match_multi(rect[1:-2, 1:-2], 5)
+    ev[3].record()
+    out = psf.psf_from_wavefront(mat, gy, gz, cfg.defocus_for_wave,
+                                 cfg.energy.wavelength_m)
+    ev[4].record()
+    ev[4].synchronize()
+    stages = dict(zip(("trace (run_config)", "wavefront_grid",
+                       "Legendre (rectify + match_multi)",
+                       f"PSF ({out['psf'].shape[0]}^2 complex128 FFT)"),
+                      (a.elapsed_time(b) for a, b in zip(ev, ev[1:]))))
+    res64 = trace.run_config(system, dataclasses.replace(cfg, precision="f64"),
+                             defocus=p.defocus)
+    check(torch.equal(res.valid, res64.valid), "valid differs from f64")
+    d_wave = float((res.wave2 - res64.wave2)[res.valid].abs().max())
+    mat64, _, _ = wavefront.wavefront_grid(res64, W_SIDE, W_SIDE)
+    pv = float(wavefront.pv_6sigma(mat / lam_nm))
+    pv64 = float(wavefront.pv_6sigma(mat64 / lam_nm))
+    check(np.isfinite(pv) and bool(torch.isfinite(out["psf"]).all())
+          and bool(torch.isfinite(ips).all()), "non-finite analysis output")
+    print(f"[11] PV 6 sigma {pv:.9f} waves (f64 engine {pv64:.9f}); max "
+          f"|wave2 - wave2_f64| over valid rays {d_wave:.3e} nm (bar 1 nm, "
+          "the fast-vs-f64 OPL bar of 1e-9 m); stages (ms, CUDA events, one "
+          "run after the CLI's): " + "; ".join(f"{k} {v:.3f}" for k, v in
+                                             stages.items()), flush=True)
+    check(d_wave <= 1.0, "wave2 of the fast path vs f64 beyond 1 nm")
+    return launched
+
+
+def phase12_align(dev, vec, base, tk, hk):
+    """cli align at its own fan of 21, then gradient_align on the bench
+    loss from the seeded misalignment over the pitches it perturbs."""
+    import contextlib
+    import io as _io
+
+    from akbx_torch import align, cli, trace
+
+    buf = _io.StringIO()
+    reset_counts(tk, hk)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["align", "--rays", "21", "--indices", "2,3",
+                       "--no-autofocus", "--out", os.path.join(base, "al"),
+                       "--device", str(dev)])
+    torch.cuda.synchronize()
+    align_s = time.perf_counter() - t0
+    out = json.loads(buf.getvalue().strip().splitlines()[-1])
+    print(f"[12] cli align (21 rays, indices 2,3): rc {rc}, {align_s:.3f} s "
+          f"host clock, launches {counts(tk, hk)}; {out}", flush=True)
+    check(rc == 0 and abs(out["abrr_after"][0]) < abs(out["abrr_before"][0]),
+          "cli align did not reduce the astigmatism component")
+
+    free = [2, 8, 14, 20]       # the pitch of each mirror
+    losses = []
+    steps = 20
+
+    def loss_fn(v):
+        res = trace.run(build_system(v), N_SIDE, N_SIDE, defocus=v[0],
+                        exit_pupil_uniform=False, tilt_correction=True,
+                        precision="pallas")
+        loss = bench_loss(res)
+        losses.append(float(loss.detach()))
+        return loss
+
+    reset_counts(tk, hk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, last = align.gradient_align(loss_fn, vec, free, steps=steps,
+                                     lr=1e-6)
+    torch.cuda.synchronize()
+    per_step = (time.perf_counter() - t0) / steps * 1e3
+    launched = counts(tk, hk)
+    print(f"[12] gradient_align ({steps} Adam steps, lr 1e-6, bench loss at "
+          f"{N_SIDE}x{N_SIDE}, pitches {free}): loss {losses[0]:.9e} -> "
+          f"{losses[-1]:.9e}; injected {vec[free].cpu().numpy().tolist()}, "
+          f"after {got[free].cpu().numpy().tolist()}; {per_step:.3f} ms a "
+          f"step (host clock); launches {launched}", flush=True)
+    check(launched == {"K1": steps, "K2": steps, "K3": 0},
+          f"gradient_align launched {launched}")
+    check(float(last) == losses[-1] and losses[-1] < losses[0],
+          "gradient_align did not lower the loss")
+
+
 def main():
     # --- 1. the card -----------------------------------------------------
     if not torch.cuda.is_available():
@@ -760,11 +1037,7 @@ def main():
         res = trace.run(system, N_SIDE, N_SIDE, defocus=vec[0],
                         exit_pupil_uniform=False, tilt_correction=True,
                         precision="pallas")
-        # bench_common.make_step's pallas loss
-        sy, sz = trace.spot_size(res.ddet32, res.valid)
-        loss = (torch.sum(torch.where(res.valid, res.w32, 0.0) ** 2) * 1e18
-                + sy + sz)
-        return res, loss, (sy, sz)
+        return res, bench_loss(res), trace.spot_size(res.ddet32, res.valid)
 
     def forward():
         system = build_wolter_3_1(WOLTER_3_1_DEFAULT,
@@ -910,6 +1183,11 @@ def main():
         k3_t = phase9_times(dev, w, hk)
         k3_err = max(k3_err, k3_t.pop("max_abs_err"))
         del w
+
+        # --- 10.-12. the backward, cli trace and align ---------------------
+        launches = phase10_fwd_bwd(dev, vec, tk, hk)
+        phase11_cli_trace(dev, vec, base, tk, hk)
+        phase12_align(dev, vec, base, tk, hk)
 
     kernels = [
         {"name": "K1 trace_deviation (bounce chain)", "route": "cuda",

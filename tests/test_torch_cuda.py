@@ -1,6 +1,7 @@
 """The CUDA kernels K1/K2/K3 and df32.cuh's two_prod on the card against
-their PyTorch twins, the fast path on the card against the same on the
-CPU, and the Huygens path on the card against the same on the CPU.
+their PyTorch twins, the fast path and its gradient on the card against
+the same on the CPU, and the Huygens path on the card against the same
+on the CPU.
 
 Needs a CUDA card and nvcc; skips otherwise.  This file imports no jax,
 so it runs on a machine without it:
@@ -208,6 +209,37 @@ def test_fast_path_card_matches_cpu(dev):
         a, b = getattr(out[0], f).cpu().double(), getattr(out[1], f).double()
         assert float((a - b).abs().max()) <= 1e-9, f
     assert torch.equal(out[0].valid.cpu(), out[1].valid)
+
+
+@pytest.mark.parametrize("refan", [False, True], ids=["flat", "refan"])
+def test_fast_path_gradient_card_matches_cpu(dev, refan):
+    """The bench loss's gradient through the fast path at 33x33 on the
+    card (K1 and K2 forward, the plain-f32 twin's VJP on the card) against
+    the same on the CPU (the twins): K1 launches once (twice with the
+    re-fan), K2 once, the backward none; the f32 sums of the tilt mean and
+    of the backward run in another order, so each component agrees to the
+    bar against the f64 engine: 1e-3, floored at 1e-6 of the largest."""
+    vec = np.random.default_rng(1).normal(0.0, 1e-5, 26)
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        v = torch.tensor(vec, device=d, requires_grad=True)
+        s = build_wolter_3_1(WOLTER_3_1_DEFAULT, AlignParams.from_vector(v))
+        k1, k2 = tk.trace_deviation.launches, tk.detector.launches
+        r = trace.run(s, 33, 33, defocus=v[0], exit_pupil_uniform=refan,
+                      precision="pallas")
+        sy, sz = trace.spot_size(r.ddet32, r.valid)
+        loss = torch.sum(torch.where(r.valid, r.w32, 0.0) ** 2) * 1e18 + sy + sz
+        loss.backward()
+        torch.cuda.synchronize()
+        if d == dev:
+            assert (tk.trace_deviation.launches - k1,
+                    tk.detector.launches - k2) == (2 if refan else 1, 1)
+        grads.append(v.grad.cpu().numpy())
+    card, cpu = grads
+    assert np.isfinite(card).all()
+    scale = np.abs(cpu).max()
+    assert (np.abs(card - cpu)
+            / np.maximum(np.abs(cpu), 1e-6 * scale)).max() < 1e-3
 
 
 def _huygens_inputs(dev, n, m, lam, seed):

@@ -203,24 +203,10 @@ def test_fast_trace_is_lazy():
     assert r.trace.exit_points is r.trace.materialize().points[-1]
 
 
-def test_backward_raises_until_ported():
-    """No gradient through the fast engine is silently wrong: its
-    backward raises until the f32 twin is ported."""
-    v = torch.zeros(26, dtype=torch.float64, requires_grad=True)
-    s = tsys.build_wolter_3_1(tsys.WOLTER_3_1_DEFAULT,
-                              tsys.AlignParams.from_vector(v, device="cpu"))
-    r = ttr.run(s, 5, 5, defocus=v[0], **_run_kwargs("pallas"))
-    assert r.w32.requires_grad
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        r.w32.sum().backward()
-
-
 @pytest.mark.parametrize("kwargs", [
-    dict(exit_pupil_uniform=True, precision="pallas"),
     dict(exit_pupil_uniform=False, precision="df32"),
     dict(exit_pupil_uniform=False, precision="pallas", ray_sharding=object()),
-    dict(exit_pupil_uniform=False, precision="f64", fan_mode="edge_dense"),
-], ids=["exit_pupil_uniform", "df32", "ray_sharding", "edge_dense"])
+], ids=["df32", "ray_sharding"])
 def test_unported_options_raise(kwargs):
     s = tsys.build_wolter_3_1(tsys.WOLTER_3_1_DEFAULT,
                               tsys.AlignParams.zeros("cpu"))

@@ -340,13 +340,25 @@ def test_cli_propagate_matches_akbx(cli_runs, tmp_path):
         ("Image", "Image2", "M1", "M2", "M3", "M4")]
 
 
-def test_cli_unported_options_raise(tmp_path):
+def test_cli_unported_options_raise(cli_runs, tmp_path):
+    """--system kb still raises; propagate --config reads akbx's
+    WaveConfig file: on akbx's handoff it writes what the same command
+    without it wrote (the file's wavelength is the default, and its
+    use_pallas runs K3 as the default backend does)."""
+    from akbx import config as jcfg
+
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcli.main(["export-wave", "--system", "kb", "--device", "cpu",
                    "--out", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.main(["propagate", str(tmp_path), "--config", "w.json",
-                   "--device", "cpu"])
+    cfg = str(tmp_path / "wave.json")
+    jcfg.save_config(jcfg.WaveConfig(), cfg)
+    out = _cli(tcli, "propagate", cli_runs["export"][0]["out_dir"], "--out",
+               str(tmp_path / "prop"), "--config", cfg, "--device", "cpu")
+    assert out["stages"] == 5
+    np.testing.assert_array_equal(
+        np.load(os.path.join(out["out"], "intensity_Image.npy")),
+        np.load(os.path.join(cli_runs["t_on_j"]["out"],
+                             "intensity_Image.npy")))
 
 
 @pytest.mark.parametrize("make", [
