@@ -9,8 +9,11 @@ ported so far).
   stage caching (``--config`` takes a WaveConfig);
 * ``align``       — sensitivity-matrix alignment solve.
 
-Each prints akbx's JSON summary line and runs on ``--device`` (default
-``cuda``).  Run ``python -m akbx_torch.cli <cmd> --help``.
+``--system`` picks the mirror system: ``akb`` (Wolter III+I), ``kb``
+(akbx's KB7 design), ``tandem`` or ``alternating`` (Wolter III+III).
+akbx's other commands raise ``NotImplementedError``.  Each prints
+akbx's JSON summary line and runs on ``--device`` (default ``cuda``).
+Run ``python -m akbx_torch.cli <cmd> --help``.
 """
 
 from __future__ import annotations
@@ -40,23 +43,37 @@ def _add_device_arg(p):
                    help="torch device of the run (default cuda)")
 
 
+# akbx's KB7 design: l1h, l2h, inc_h, mlen_h, wd_v, inc_v, mlen_v
+KB7_DESIGN = (146.0, 0.21, 0.16742, 0.180, 0.030, 0.15525, 0.05)
+
+
 def _build_fn(args):
     from akbx_torch import io
-    from akbx_torch.systems import (AlignParams, WOLTER_3_1_DEFAULT,
-                                    build_wolter_3_1)
+    from akbx_torch.systems import (AlignParams, KBSpec, WOLTER_3_1_DEFAULT,
+                                    WOLTER_3_3_ALT_DEFAULT,
+                                    WOLTER_3_3_TANDEM_DEFAULT, build_kb,
+                                    build_wolter_3_1,
+                                    build_wolter_3_3_alternating,
+                                    build_wolter_3_3_tandem)
 
-    if args.system != "akb":
-        raise NotImplementedError(
-            f"--system {args.system}: only the Wolter III+I AKB system is "
-            "ported (ROADMAP Queue 1, item 12)")
     if args.params:
         params = AlignParams.from_vector(io.read_optical_params(args.params),
                                          device=args.device)
     else:
         params = AlignParams.zeros(args.device)
 
+    if args.system == "akb":
+        spec, builder = WOLTER_3_1_DEFAULT, build_wolter_3_1
+    elif args.system == "tandem":
+        spec, builder = WOLTER_3_3_TANDEM_DEFAULT, build_wolter_3_3_tandem
+    elif args.system == "alternating":
+        spec, builder = WOLTER_3_3_ALT_DEFAULT, build_wolter_3_3_alternating
+    else:
+        spec = KBSpec.from_kb_define(*KB7_DESIGN, device=args.device)
+        builder = build_kb
+
     def build(p, **kw):
-        return build_wolter_3_1(WOLTER_3_1_DEFAULT, p, **kw)
+        return builder(spec, p, **kw)
 
     return build, params
 
@@ -207,9 +224,22 @@ def cmd_propagate(args):
     return 0
 
 
+def cmd_unported(args):
+    raise NotImplementedError(
+        f"cli {args.cmd} is not ported yet (ROADMAP Queue 1, item 15)")
+
+
+# akbx's commands that the port does not have yet
+UNPORTED = ("design-kb", "sweep-kb", "fab-profiles", "design-na", "plot",
+            "gui")
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="akbx_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
+    for name in UNPORTED:
+        sub.add_parser(name, help="not ported yet").set_defaults(
+            fn=cmd_unported)
 
     p = sub.add_parser("trace", help="trace + wavefront + Legendre + PSF")
     _add_system_args(p)

@@ -33,6 +33,15 @@ class Energy(str, enum.Enum):
         return self.wavelength_m * 1e9
 
 
+class WolterOrdering(str, enum.Enum):
+    """Mirror ordering of the 4-mirror AKB system
+    (:func:`akbx_torch.systems.build_system` dispatches on it)."""
+
+    WOLTER_3_1 = "wolter_3_1"  # hyp_V -> ell_V -> ell_H -> hyp_H
+    WOLTER_3_3_TANDEM = "wolter_3_3_tandem"  # hyp_V -> ell_V -> hyp_H -> ell_H
+    WOLTER_3_3_ALTERNATING = "wolter_3_3_alternating"  # hyp_V -> hyp_H -> ell_V -> ell_H
+
+
 @dataclasses.dataclass(frozen=True)
 class TraceConfig:
     """Options of a trace run: the argument surface of
@@ -53,7 +62,8 @@ class TraceConfig:
     tilt_mode: str = "mean"
     # Source-fan sampling: "uniform" or "edge_dense" (sigmoid ramp).
     fan_mode: str = "uniform"
-    # Trace arithmetic: "f64" or "pallas" (the deviation kernels).
+    # Trace arithmetic: "f64", "df32" (the double-f32 deviation trace in
+    # plain torch) or "pallas" (the deviation kernels).
     precision: str = "f64"
 
     @property

@@ -13,7 +13,7 @@ import torch
 
 from akbx_torch import device_of
 from akbx_torch.surfaces import Mirror
-from akbx_torch.systems import AKBSpec, AlignParams, OpticalSystem
+from akbx_torch.systems import AKBSpec, AlignParams, KBSpec, OpticalSystem
 from akbx_torch.wave import WaveField
 
 
@@ -35,10 +35,17 @@ def spec_from_akbx(spec_fields: dict) -> AKBSpec:
     return AKBSpec(**{k: float(v) for k, v in spec_fields.items()})
 
 
+def kb_spec_from_akbx(spec_fields: dict) -> KBSpec:
+    """A :class:`KBSpec` from ``dataclasses.asdict`` of akbx's KB spec."""
+    return KBSpec(**{k: float(v) for k, v in spec_fields.items()})
+
+
 def system_from_numpy(fields: dict, device=None) -> OpticalSystem:
     """A placed :class:`OpticalSystem` from numpy fields: ``mirrors`` (a
-    list of dicts with the :class:`Mirror` field names), ``s2f_middle``,
-    ``fan_h``, ``fan_v``, ``source`` and ``valid``."""
+    list of dicts with the :class:`Mirror` field names, the figure state
+    ``fig_coeffs``, ``uv_center``, ``uv_half`` and calibrated ``axes``
+    among them), ``s2f_middle``, ``fan_h``, ``fan_v``, ``source`` and
+    ``valid``."""
     mirrors = tuple(Mirror(**{k: _f64(m[k], device) for k in Mirror._fields})
                     for m in fields["mirrors"])
     return OpticalSystem(

@@ -124,6 +124,24 @@ def rotate_about_axis(coeffs, axis, theta, center):
     return transform_quadric(coeffs, R, center), R
 
 
+def rotate_x(coeffs, theta, center):
+    """Rotate the surface about the global x axis through ``center``."""
+    return rotate_about_axis(coeffs, _t((1.0, 0.0, 0.0), coeffs), theta,
+                             center)[0]
+
+
+def rotate_y(coeffs, theta, center):
+    """Rotate the surface about the global y axis through ``center``."""
+    return rotate_about_axis(coeffs, _t((0.0, 1.0, 0.0), coeffs), theta,
+                             center)[0]
+
+
+def rotate_z(coeffs, theta, center):
+    """Rotate the surface about the global z axis through ``center``."""
+    return rotate_about_axis(coeffs, _t((0.0, 0.0, 1.0), coeffs), theta,
+                             center)[0]
+
+
 def solve_quadratic(A, B, C):
     """Stable roots of ``A t^2 + B t + C = 0`` (q-form); returns
     ``(t_plus, t_minus, valid)`` with ``valid`` flagging ``D > 0``."""

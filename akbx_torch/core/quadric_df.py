@@ -164,6 +164,40 @@ def df_asin(x: DF) -> DF:
     return df_add(y0df, df_div(r, df_cos_small(y0df)))
 
 
+# --- the reference's shift_z bug, emulated (oracle parity only) ---------
+
+def ref_shift_z_buggy(coeffs: torch.Tensor, s) -> torch.Tensor:
+    """The reference's ``shift_z`` as it is, bug included: it computes
+    ``h - f s`` and returns the old ``h``.  Every reference rotation about
+    a center with z != 0 runs through it.  Plain f64, leading batch
+    dimensions allowed; never for real work."""
+    a, b, c, d, e, f, g, h, i, j = coeffs.unbind(-1)
+    g = g - e * s
+    # h = h - f * s  <-- the update the reference drops
+    i2 = i - 2 * c * s
+    j = j + c * s ** 2 - i * s
+    return torch.stack([a, b, c, d, e, f, g, h, i2, j], dim=-1)
+
+
+def ref_shift_buggy(coeffs: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Sequential reference-style shift_x, shift_y and the buggy shift_z
+    by ``t`` (..., 3)."""
+    z = torch.zeros_like(t[..., 0])
+    coeffs = geo.shift(coeffs, torch.stack([t[..., 0], z, z], dim=-1))
+    coeffs = geo.shift(coeffs, torch.stack([z, t[..., 1], z], dim=-1))
+    return ref_shift_z_buggy(coeffs, t[..., 2])
+
+
+def ref_rotate_about_axis_buggy(coeffs, axis, theta, center):
+    """The reference's ``rotate_general_axis``: buggy shift to the origin,
+    rotation about it, buggy shift back.  Returns (coeffs, R) as
+    :func:`akbx_torch.core.geometry.rotate_about_axis`."""
+    coeffs = ref_shift_buggy(coeffs, -center)
+    R = geo.rodrigues(axis, theta)
+    coeffs = geo.transform_quadric(coeffs, R, torch.zeros_like(center))
+    return ref_shift_buggy(coeffs, center), R
+
+
 def wolter_iii_angles_df(a_hyp, b_hyp, a_ell, b_ell, theta1: torch.Tensor):
     """The Wolter III layout angle chain in double-word f64 (same algebra
     as :func:`akbx_torch.design.wolter_iii_angles`, with the conic origins

@@ -1,9 +1,9 @@
-"""Mirror surfaces (port of :mod:`akbx.surfaces`, without figure errors).
+"""Mirror surfaces (port of :mod:`akbx.surfaces`).
 
 A :class:`Mirror` carries the quadric 10-vector, the root branch of the
 intersection, a chief-ray center, a local frame and a Legendre figure-error
-field.  Only the figure-free case is ported: a ``fig_coeffs`` other than
-``(1, 1)`` (a constant piston) raises.
+field: a height map ``h(u, v)`` over the mirror footprint, differentiable
+in its coefficients.  A ``(1, 1)`` field is a constant piston.
 """
 
 from __future__ import annotations
@@ -70,22 +70,74 @@ def hyperbola_coeffs(a, b, plane: str, device=None) -> torch.Tensor:
     return _conic(a, b, plane, -1.0, device)
 
 
+def has_figure(mirror: Mirror) -> bool:
+    """Whether the mirror carries a figure-error field beyond a piston."""
+    return tuple(mirror.fig_coeffs.shape) != (1, 1)
+
+
+def _legendre_basis_1d(x: torch.Tensor, order: int) -> torch.Tensor:
+    """P_0..P_{order-1} at x by the recurrence; (order, N)."""
+    outs = [torch.ones_like(x)]
+    if order > 1:
+        outs.append(x)
+    for n in range(1, order - 1):
+        outs.append(((2 * n + 1) * x * outs[n] - n * outs[n - 1]) / (n + 1))
+    return torch.stack(outs)
+
+
+def figure_height(mirror: Mirror, points: torch.Tensor) -> torch.Tensor:
+    """Legendre figure-error height [m] at surface points (3, N): the
+    modes on the local coordinates ``(axes[0:2] (p - center) - uv_center)
+    / uv_half``."""
+    local = mirror.axes @ (points - mirror.center[:, None])
+    u = (local[0] - mirror.uv_center[0]) / mirror.uv_half[0]
+    v = (local[1] - mirror.uv_center[1]) / mirror.uv_half[1]
+    n_u, n_v = mirror.fig_coeffs.shape
+    Pu = _legendre_basis_1d(u, n_u)  # (n_u, N)
+    Pv = _legendre_basis_1d(v, n_v)  # (n_v, N)
+    return torch.einsum("uv,un,vn->n", mirror.fig_coeffs, Pu, Pv)
+
+
+def _with_figure(mirror: Mirror, pts: torch.Tensor, n: torch.Tensor):
+    """Displace the points by the figure height along the normal and tilt
+    the normal by the height's tangential gradient, a central difference
+    with a step of 1e-7 m along two in-surface directions (akbx's, so
+    that both packages compute the same thing):
+
+      p' = p + h n,   n' = normalize(n - dh1 t1 - dh2 t2)"""
+    h = figure_height(mirror, pts)
+    t1 = mirror.axes[0][:, None].expand_as(n)   # local axial (~tangent)
+    t2 = geo.normalize(torch.linalg.cross(n, t1, dim=0))
+    t1s = geo.normalize(torch.linalg.cross(t2, n, dim=0))  # in-surface axial
+    eps = 1e-7
+    dh1 = (figure_height(mirror, pts + eps * t1s)
+           - figure_height(mirror, pts - eps * t1s)) / (2 * eps)
+    dh2 = (figure_height(mirror, pts + eps * t2)
+           - figure_height(mirror, pts - eps * t2)) / (2 * eps)
+    return pts + h * n, geo.normalize(n - dh1 * t1s - dh2 * t2)
+
+
 def intersect_and_reflect(mirror: Mirror, rays: torch.Tensor,
                           origins: torch.Tensor):
-    """One bounce: exact quadric intersection + constant piston height.
+    """One bounce: exact quadric intersection + figure-error perturbation.
 
+    The figure height displaces the surface along the normal and its
+    tangential gradient tilts the normal (first-order exact for nm-scale
+    heights, differentiable in ``fig_coeffs``); the segment is measured
+    to the displaced point.  A ``(1, 1)`` field is a constant piston.
     Returns (points, reflected_dirs, normals, seg_len, valid).
     """
-    if tuple(mirror.fig_coeffs.shape) != (1, 1):
-        raise NotImplementedError(
-            "figure errors are not ported yet (ROADMAP Queue 1, item 3)")
     pts, t, valid = geo.intersect(mirror.coeffs, rays, origins,
                                   branch=mirror.branch)
     n = geo.surface_normal(mirror.coeffs, pts)
-    # a (1,1) coeff is a constant piston height along the normal; rays are
-    # unit, so the segment to the displaced point is |t + piston (n . d)|
-    piston = mirror.fig_coeffs[0, 0]
-    pts = pts + piston * n
-    seg = torch.abs(t + piston * torch.sum(n * rays, dim=0))
+    if has_figure(mirror):
+        pts, n = _with_figure(mirror, pts, n)
+        seg = torch.sqrt(torch.sum((pts - origins) ** 2, dim=0))
+    else:
+        # a constant piston height along the normal; rays are unit, so the
+        # segment to the displaced point is |t + piston (n . d)|
+        piston = mirror.fig_coeffs[0, 0]
+        pts = pts + piston * n
+        seg = torch.abs(t + piston * torch.sum(n * rays, dim=0))
     refl = geo.reflect(rays, n, renormalize=False)
     return pts, refl, n, seg, valid

@@ -1,16 +1,21 @@
 """Batched sequential ray tracing through a mirror chain (port of
-:mod:`akbx.trace`: the f64 engine and the ``precision="pallas"`` fast
-engine, each with and without the exit-pupil re-fan).
+:mod:`akbx.trace`: the f64 engine, the ``precision="df32"`` deviation
+engine and the ``precision="pallas"`` fast engine, each with and without
+the exit-pupil re-fan).
 
 Rays are ``(3, N)`` f64 tensors; invalid rays carry a boolean mask.  The
 fast engine traces one chief ray in f64 and every other ray as its exact
 deviation from the chief in double-f32, on the kernels K1 (bounce chain)
 and K2 (detector planes / OPL) of :mod:`akbx_torch.kernels.trace_kernel`;
 between them, the tilt-removal angles are a masked mean over all rays.
-Its backward is the autograd of a plain-f32 twin of the same deviation
-algebra (:func:`trace_dev32`, :func:`_fast_devs_f32`): the double-word
-error terms have near-zero derivatives, so the Jacobians agree to f32
-rounding, and the backward launches no kernel.
+Its backward is the autograd of a plain twin of the same deviation
+algebra (:func:`_dev32_scan`, :func:`_fast_devs_f32`) in float64:
+the double-word error terms have near-zero
+derivatives, so the twin's Jacobian is the engine's.  akbx's twin runs
+in float32, whose rounding leaves gradient components below ~1e-3 of the
+largest off by up to tens of percent on the KB and Wolter III+III
+systems (ROADMAP F6); the card has float64.  The backward launches no
+kernel.
 """
 
 from __future__ import annotations
@@ -20,9 +25,12 @@ from typing import NamedTuple
 import torch
 
 from akbx_torch.core import geometry as geo
+from akbx_torch.core import geometry_df as gdf
 from akbx_torch.core import precision as pr
+from akbx_torch.core.precision import (DF, df_add, df_div, df_mul, df_mul_f,
+                                       df_sqrt, df_sub)
 from akbx_torch.kernels import trace_kernel as tk
-from akbx_torch.surfaces import Mirror, intersect_and_reflect
+from akbx_torch.surfaces import Mirror, has_figure, intersect_and_reflect
 from akbx_torch.systems import OpticalSystem
 from akbx_torch.utils import linspace, non_uniform_distribution
 
@@ -162,9 +170,128 @@ def _fast_scalars(system, rays, origins, chief_idx):
     return chief_d0, chief_p0, consts64
 
 
-# --- the plain-f32 twin (the fast engine's backward) ----------------------
-# The 3x3 products are broadcasts and sums, never matmuls, so that they
-# stay true float32 whatever torch.backends.cuda.matmul.allow_tf32 says.
+def _where_df(cond, a: DF, b: DF) -> DF:
+    return DF(torch.where(cond, a.hi, b.hi), torch.where(cond, a.lo, b.lo))
+
+
+def _df_bounce(consts, m: int, dp: gdf.Vec3DF, dd: gdf.Vec3DF):
+    """One bounce of :func:`trace_df`: the deviation of the intersection
+    (dq), of the reflected direction (dd'), the unit normal and the leg
+    length deviation (dt) in double-f32, and the rays' validity."""
+    (Ms, bvecs, Ds, Dns, Ts, A_noms, Bp_noms, rhos, gCs, gAs, branches,
+     _) = consts
+    shape = dp.x.hi.shape
+    M9 = gdf.mat3_const(Ms[m])
+    gC_c = gdf.vec3_const(gCs[m], shape)
+    gA_c = gdf.vec3_const(gAs[m], shape)
+    D_c = gdf.vec3_const(Ds[m], shape)
+    Dn_c = gdf.vec3_const(Dns[m], shape)
+    nn_c = gdf.vec3_const(bvecs[m], shape)          # gradQ(0) = bvec
+    T_c = gdf.df_bcast(gdf.split_f64(Ts[m]), shape)
+    T2_c = gdf.df_bcast(gdf.split_f64(Ts[m] * Ts[m]), shape)
+    A_c = gdf.df_bcast(gdf.split_f64(A_noms[m]), shape)
+    Bp_c = gdf.df_bcast(gdf.split_f64(Bp_noms[m]), shape)
+    rho_c = gdf.df_bcast(gdf.split_f64(rhos[m]), shape)
+
+    # per-ray deviation forms (every operand small or O(1))
+    Mdp = gdf.matvec(M9, dp)
+    Mdd = gdf.matvec(M9, dd)
+    dC = df_add(gC_c.dot(dp), Mdp.dot(dp))
+    dA = df_add(gA_c.dot(dd), Mdd.dot(dd))
+    dB = df_add(df_add(gC_c.dot(dd), gA_c.dot(dp)),
+                df_mul_f(Mdp.dot(dd), 2.0))
+
+    # R = A T^2 + B T + C - (chief part) = dA T^2 + dB T + dC + rho
+    R = df_add(df_add(df_mul(dA, T2_c), df_mul(dB, T_c)), df_add(dC, rho_c))
+    A_full = df_add(dA, A_c)
+    Bp = df_add(df_add(df_mul_f(df_mul(dA, T_c), 2.0), dB), Bp_c)
+
+    # roots of A dt^2 + B' dt + R = 0, stable q-form; the shift t = T +
+    # dt leaves the discriminant invariant, so the chief's branch flag
+    # selects the same sheet
+    disc = df_sub(df_mul(Bp, Bp), df_mul_f(df_mul(A_full, R), 4.0))
+    ok = disc.hi > 0
+    zero = torch.zeros_like(disc.hi)
+    sq = df_sqrt(DF(torch.where(ok, disc.hi, zero),
+                    torch.where(ok, disc.lo, zero)))
+    b_pos = Bp.hi >= 0
+    sgn = torch.where(b_pos, 1.0, -1.0).to(F32)
+    qq = df_mul_f(df_add(Bp, df_mul_f(sq, sgn)), -0.5)
+    safe_q = DF(torch.where(qq.hi != 0, qq.hi, 1.0), qq.lo)
+    safe_A = DF(torch.where(A_full.hi != 0, A_full.hi, 1.0), A_full.lo)
+    t_q_over_A = df_div(qq, safe_A)
+    t_R_over_q = df_div(R, safe_q)
+    t_plus = _where_df(b_pos, t_R_over_q, t_q_over_A)
+    t_minus = _where_df(b_pos, t_q_over_A, t_R_over_q)
+    dt = _where_df(branches[m] >= 0, t_plus, t_minus)
+
+    # intersection deviation: dq = dp + T dd + dt (D + dd)
+    d_full = gdf.Vec3DF(df_add(dd.x, D_c.x), df_add(dd.y, D_c.y),
+                        df_add(dd.z, D_c.z))
+    dq = dp.add(dd.scale(T_c)).add(d_full.scale(dt))
+
+    # normal: gradQ(dq) = bvec + 2 M dq, normalized in df32
+    Mdq = gdf.matvec(M9, dq)
+    n_unit = gdf.Vec3DF(df_add(df_mul_f(Mdq.x, 2.0), nn_c.x),
+                        df_add(df_mul_f(Mdq.y, 2.0), nn_c.y),
+                        df_add(df_mul_f(Mdq.z, 2.0), nn_c.z)).normalize()
+
+    # reflect the full direction; deviation from the chief's reflected
+    refl = gdf.reflect_df(d_full, n_unit)
+    dd_new = gdf.Vec3DF(df_sub(refl.x, Dn_c.x), df_sub(refl.y, Dn_c.y),
+                        df_sub(refl.z, Dn_c.z))
+    return dq, dd_new, n_unit, dt, ok
+
+
+def trace_df(system: OpticalSystem, rays: torch.Tensor,
+             origins: torch.Tensor, chief_idx: int | None = None
+             ) -> TraceResult:
+    """The sequential trace as an exact deviation from an f64 chief ray,
+    in double-f32 tensor ops: akbx's third engine.
+
+    One chief ray is traced in f64 and every other ray is its deviation
+    (dp, dd) from the chief.  Quadrics are degree-2 polynomials, so the
+    deviation update is exact algebra, not a linearization:
+
+      C  = C_nom + gC.dp + dp^T M dp          gC = gradQ(p_nom)
+      B  = B_nom + gC.dd + gA.dp + 2 dp^T M dd    gA = 2 M D
+      A  = A_nom + gA.dd + dd^T M dd
+      dt : A dt^2 + (2 A T + B) dt + (A T^2 + B T + C) = 0   (small root)
+
+    with every ``*_nom``, T, D, M a per-mirror f64 chief constant and every
+    per-ray quantity small, so the double-f32 words resolve ~1e-15 m leg
+    deviations.  The branch is the chief's.  It is K1's algebra in plain
+    PyTorch (no kernel), differentiable under autograd.  ``chief_idx``:
+    fan index of the chief ray (default: the batch center).  Outputs are
+    f64; the contract of :func:`trace`.
+    """
+    n_rays = rays.shape[1]
+    if chief_idx is None:
+        chief_idx = n_rays // 2
+    chief_d0, chief_p0, consts = _fast_scalars(system, rays, origins,
+                                               chief_idx)
+    Ps, Dns, Ts = consts[-1], consts[3], consts[4]
+    # per-ray deviations: exact f64 subtraction, then split to f32 pairs
+    dd = gdf.Vec3DF.from_f64(rays - chief_d0)
+    dp = gdf.Vec3DF.from_f64(origins - chief_p0)
+    valid = torch.ones(n_rays, dtype=torch.bool, device=rays.device)
+    points, dirs, normals, segs = [], [rays], [], []
+    for m in range(len(system.mirrors)):
+        dq, dd, n_unit, dt, ok = _df_bounce(consts, m, dp, dd)
+        valid = valid & ok
+        points.append(Ps[m][:, None] + dq.to_f64())
+        dirs.append(Dns[m][:, None] + dd.to_f64())
+        normals.append(n_unit.to_f64())
+        segs.append(Ts[m] + gdf.df_to_f64(dt))
+        dp = dq   # frames hop through the chief constants
+    return TraceResult(tuple(points), tuple(dirs), tuple(normals),
+                       tuple(segs), valid)
+
+
+# --- the plain twin (the fast engine's backward) --------------------------
+# The 3x3 products are broadcasts and sums, never matmuls, so that in
+# float32 they stay true float32 whatever
+# torch.backends.cuda.matmul.allow_tf32 says.
 
 def _mv(M, v):
     """(3, 3) @ (3, N)."""
@@ -177,8 +304,8 @@ def _dot(c, v):
 
 
 def _dev32_scan(consts32, dp0, dd0):
-    """The deviation bounce chain in plain f32, one op for each double-word
-    op of K1.  Returns per-mirror lists (dqs, dds, normals, dts) and the
+    """The deviation bounce chain in the plain arithmetic of the inputs'
+    dtype, one op for each double-word op of K1.  Returns per-mirror lists (dqs, dds, normals, dts) and the
     validity mask."""
     (Ms, bvecs, Ds, Dns, Ts, A_noms, Bp_noms, rhos, gCs, gAs, branches,
      _) = consts32
@@ -224,28 +351,29 @@ def _dev32_scan(consts32, dp0, dd0):
     return dqs, dds, normals, dts, valid
 
 
-def _dev32_trace(system, rays, origins, chief_idx: int):
-    """f64 chief constants and the plain-f32 deviation chain of every ray:
-    ``(consts64, (dqs, dds, normals, dts, valid))``."""
+def _dev32_trace(system, rays, origins, chief_idx: int, dtype=F32):
+    """f64 chief constants and the deviation chain of every ray in plain
+    ``dtype``: ``(consts64, (dqs, dds, normals, dts, valid))``."""
     chief_d0, chief_p0, consts64 = _fast_scalars(system, rays, origins,
                                                  chief_idx)
-    consts32 = tuple(c.to(F32) for c in consts64)
-    return consts64, _dev32_scan(consts32, (origins - chief_p0).to(F32),
-                                 (rays - chief_d0).to(F32))
+    consts = tuple(c.to(dtype) for c in consts64)
+    return consts64, _dev32_scan(consts, (origins - chief_p0).to(dtype),
+                                 (rays - chief_d0).to(dtype))
 
 
 def trace_dev32(system: OpticalSystem, rays: torch.Tensor,
-                origins: torch.Tensor, chief_idx: int | None = None
-                ) -> TraceResult:
-    """The deviation trace in plain single f32: the algebra of K1 with
-    every double-word op replaced by one f32 op.  Its values are only
-    f32-grade, but its Jacobian equals the f64 engine's to f32 rounding,
-    which is what the fast engine's backward needs.  Same contract as
+                origins: torch.Tensor, chief_idx: int | None = None,
+                dtype=F32) -> TraceResult:
+    """The deviation trace in plain single ``dtype`` arithmetic (f32 by
+    default, akbx's): the algebra of K1 with every double-word op replaced
+    by one plain op.  In f32 its values are only f32-grade, but its
+    Jacobian equals the f64 engine's to f32 rounding; the fast engine's
+    backward differentiates it in float64.  Same contract as
     :func:`trace`."""
     if chief_idx is None:
         chief_idx = rays.shape[1] // 2
     consts64, (dqs, dds, normals, dts, valid) = _dev32_trace(
-        system, rays, origins, chief_idx)
+        system, rays, origins, chief_idx, dtype)
     Ps, Dns, Ts = consts64[-1], consts64[3], consts64[4]
     n_mirr = Ps.shape[0]
     return TraceResult(
@@ -263,7 +391,7 @@ def _tensors_of(system: OpticalSystem) -> list:
 
 
 class _TwinVJP(torch.autograd.Function):
-    """The kernels forward, the VJP of their plain-f32 twin backward.
+    """The kernels forward, the VJP of their plain twin backward.
 
     A subclass's ``forward(ctx, static, *tensors)`` runs the kernels and
     returns through :meth:`keep`; ``static`` holds the system and the
@@ -331,9 +459,10 @@ def _trace_pallas_forward(system, rays, origins, chief_idx: int):
 
 
 def _trace_pallas_f32(system, rays, origins, chief_idx: int):
-    """Plain-f32 twin of :func:`_trace_pallas_forward` (lo words None)."""
-    consts64, (dqs, dds, _, dts, valid) = _dev32_trace(system, rays,
-                                                       origins, chief_idx)
+    """Plain float64 twin of :func:`_trace_pallas_forward` (lo words
+    None)."""
+    consts64, (dqs, dds, _, dts, valid) = _dev32_trace(
+        system, rays, origins, chief_idx, F64)
     return (torch.cat(dqs), None, torch.cat(dds), None, torch.stack(dts),
             None, valid, consts64[-1], consts64[3], consts64[4])
 
@@ -367,8 +496,8 @@ def _materialize(system, rays, Ps, Dns, Ts, dq_hi, dq_lo, od_hi, od_lo,
 def trace_pallas(system: OpticalSystem, rays: torch.Tensor,
                  origins: torch.Tensor, chief_idx: int | None = None
                  ) -> LazyTraceResult:
-    """The fast trace: K1 forward, the VJP of :func:`trace_dev32`'s
-    deviation chain backward.  Same contract as :func:`trace`, its f64
+    """The fast trace: K1 forward, the VJP of the plain twin of its
+    deviation chain (:func:`_trace_pallas_f32`) backward.  Same contract as :func:`trace`, its f64
     fields materialized on first access."""
     if chief_idx is None:
         chief_idx = rays.shape[1] // 2
@@ -421,11 +550,12 @@ def _tilt_stats(D4, dd4_32, valid, tilt: bool, tilt_mode: str):
     """Tilt-removal angles from exit-direction deviations:
     ``arctan(d_w / d_x)`` = the chief angle (f64) + ``arctan((u - v) /
     (1 + u v))`` with u the per-ray and v the chief slope, the small
-    difference term in plain f32."""
+    difference term in the deviations' dtype (akbx's: K1's f32 hi words;
+    the port's fast engine and its twin: f64)."""
     if not tilt:
         z = torch.zeros((), dtype=F64, device=D4.device)
         return z, z
-    D432 = D4.to(F32)
+    D432 = D4.to(dd4_32.dtype)
 
     def dev_angle(comp):
         num = D432[0] * dd4_32[comp] - D432[comp] * dd4_32[0]
@@ -455,11 +585,12 @@ def _tilt_stats(D4, dd4_32, valid, tilt: bool, tilt_mode: str):
 
 def _pre_tilt_focus(P4, D4, det_x, dq4_32, dd4_32, valid):
     """Masked mean of the pre-tilt focal-plane intersections (the tilt
-    rotation pivot), chief + f32 deviation mean."""
+    rotation pivot), chief + the mean of the deviations (in their
+    dtype)."""
     t_c0 = (det_x - P4[0]) / D4[0]
     det_c0 = P4 + t_c0 * D4
-    D432 = D4.to(F32)
-    tc032 = t_c0.to(F32)
+    D432 = D4.to(dq4_32.dtype)
+    tc032 = t_c0.to(dq4_32.dtype)
     den = D432[0] + dd4_32[0]
     dt0 = -(dq4_32[0] + tc032 * dd4_32[0]) / den
     ddet0 = dq4_32 + tc032 * dd4_32 + dt0 * (D432[:, None] + dd4_32)
@@ -515,8 +646,12 @@ def _fast_devs_forward(system, rays, origins, det_x, det_x2, chief_idx: int,
     d4_hi, d4_lo = od_hi[s], od_lo[s]
     P4, D4 = Ps[-1], Dns[-1]
 
-    theta_y, theta_z = _tilt_stats(D4, d4_hi, valid, tilt, tilt_mode)
-    focus = _pre_tilt_focus(P4, D4, det_x, q4_hi, d4_hi, valid)
+    # the tilt angles and the pivot from K1's deviations as hi + lo in
+    # f64, as the twin has them; akbx reduces the f32 hi words, ~1e-9 rad
+    # off the f64 engine's angles (ROADMAP F9)
+    d4, q4 = _f64_of(d4_hi, d4_lo), _f64_of(q4_hi, q4_lo)
+    theta_y, theta_z = _tilt_stats(D4, d4, valid, tilt, tilt_mode)
+    focus = _pre_tilt_focus(P4, D4, det_x, q4, d4, valid)
     (R, P4r, D4r, t_c, det_c, L, t_c2, det_c2, L2, total_chief,
      total2_chief) = _fast_post_scalars(consts64, det_x, det_x2,
                                         theta_y, theta_z, focus, tilt)
@@ -535,10 +670,10 @@ def _fast_devs_forward(system, rays, origins, det_x, det_x2, chief_idx: int,
 
 
 def _det_stage_f32(R, D4r, t_c, L, dq32, dd32, dsum32):
-    """Plain-f32 twin of K2's deviation algebra, one detector plane:
-    (ddet, dqr, ddr, dtot)."""
-    R32, D432 = R.to(F32), D4r.to(F32)
-    tc32, L32 = t_c.to(F32), L.to(F32)
+    """Plain twin of K2's deviation algebra in the inputs' dtype, one
+    detector plane: (ddet, dqr, ddr, dtot)."""
+    R32, D432 = R.to(dq32.dtype), D4r.to(dq32.dtype)
+    tc32, L32 = t_c.to(dq32.dtype), L.to(dq32.dtype)
     dqr = _mv(R32, dq32)
     ddr = _mv(R32, dd32)
     dt = -(dqr[0] + tc32 * ddr[0]) / (D432[0] + ddr[0])
@@ -551,11 +686,11 @@ def _det_stage_f32(R, D4r, t_c, L, dq32, dd32, dsum32):
 
 def _fast_devs_f32(system, rays, origins, det_x, det_x2, chief_idx: int,
                    tilt: bool, tilt_mode: str) -> FastDevOut:
-    """Plain-f32 twin of :func:`_fast_devs_forward`: the same chief
-    scalars, every per-ray stage in plain f32, the lo words None (the
-    double-word error terms, whose derivatives the twin drops)."""
-    consts64, (dqs, dds, _, dts, valid) = _dev32_trace(system, rays,
-                                                       origins, chief_idx)
+    """Plain twin of :func:`_fast_devs_forward`: the same chief scalars,
+    every per-ray stage in plain float64 arithmetic, the lo words None
+    (the double-word error terms, whose derivatives the twin drops)."""
+    consts64, (dqs, dds, _, dts, valid) = _dev32_trace(
+        system, rays, origins, chief_idx, F64)
     dq4, dd4 = dqs[-1], dds[-1]
     dt = torch.stack(dts)
     Ps, Dns, Ts = consts64[-1], consts64[3], consts64[4]
@@ -773,26 +908,32 @@ def run(system: OpticalSystem, n_h: int, n_v: int, defocus,
         uniform_stage: int = -1, precision: str = "f64",
         tilt_mode: str = "mean", fan_mode: str = "uniform") -> EngineResult:
     """Full engine pass: fan -> trace -> tilt removal -> detector planes
-    -> OPL -> wavefront, on the device of ``system``.
+    -> OPL -> wavefront, on the device of ``system``; with the exit-pupil
+    re-fan (``exit_pupil_uniform``: trace, re-derive the source angles on
+    the ``uniform_stage`` directions, re-trace) or without.
 
-    ``precision="pallas"`` runs the deviation kernels, ``"f64"`` the f64
-    engine; either with or without the exit-pupil re-fan (trace,
-    re-derive the source angles on the ``uniform_stage`` directions,
-    re-trace: on the fast path the first trace is :func:`trace_pallas`).
-    ``precision="df32"``, ray sharding and figure errors raise
-    ``NotImplementedError`` naming their ROADMAP item.
+    ``precision`` picks the engine, as akbx's ``run`` does:
+
+    * ``"f64"``: :func:`trace` in f64;
+    * ``"df32"``: :func:`trace_df`, the double-f32 deviation trace in
+      plain PyTorch (no kernel);
+    * ``"pallas"``: the fast engine, K1 and K2 (:func:`run_fast`; the
+      re-fan's first trace is :func:`trace_pallas`).
+
+    With figure errors on any mirror (``fig_coeffs`` other than (1, 1))
+    ``"df32"`` and ``"pallas"`` both trace on the f64 engine, and so
+    launch no kernel: K1 does not model figures (akbx's kernel does not
+    either).  Every route sums the OPL with the compensated
+    :func:`akbx_torch.core.precision.sum_segments`, except ``"pallas"``
+    with figure errors, which sums in plain f64 as akbx does.  Ray
+    sharding raises ``NotImplementedError``.
     """
     if ray_sharding is not None:
         raise NotImplementedError(
             "ray sharding is not ported yet (ROADMAP Queue 1, item 14)")
-    if precision == "df32":
-        raise NotImplementedError(
-            "precision='df32' is not ported yet (ROADMAP Queue 1, item 8)")
-    if precision not in ("f64", "pallas"):
+    if precision not in ("f64", "df32", "pallas"):
         raise ValueError(f"unknown precision {precision!r}")
-    if any(tuple(m.fig_coeffs.shape) != (1, 1) for m in system.mirrors):
-        raise NotImplementedError(
-            "figure errors are not ported yet (ROADMAP Queue 1, item 3)")
+    figure = any(has_figure(m) for m in system.mirrors)
 
     rand_p0h = fan_angles(system.fan_h, n_h, mode=fan_mode)
     rand_p0v = fan_angles(system.fan_v, n_v, mode=fan_mode)
@@ -800,7 +941,7 @@ def run(system: OpticalSystem, n_h: int, n_v: int, defocus,
     rays = ray_fan(rand_p0h, rand_p0v)
     det_x = system.s2f_middle + defocus
 
-    if precision == "pallas":
+    if precision == "pallas" and not figure:
         if exit_pupil_uniform:
             pre = trace_pallas(system, rays, src)
             rand_p0h, rand_p0v = exit_pupil_uniform_angles(
@@ -816,11 +957,12 @@ def run(system: OpticalSystem, n_h: int, n_v: int, defocus,
                             out["focus"], rand_p0h, rand_p0v,
                             out["w32"], out["ddet32"], out["w32_2"])
 
-    result = trace(system, rays, src)
+    trace_fn = trace_df if precision == "df32" and not figure else trace
+    result = trace_fn(system, rays, src)
     if exit_pupil_uniform:
         rand_p0h, rand_p0v = exit_pupil_uniform_angles(
             result, rand_p0h, rand_p0v, n_h, n_v, stage=uniform_stage)
-        result = trace(system, ray_fan(rand_p0h, rand_p0v), src)
+        result = trace_fn(system, ray_fan(rand_p0h, rand_p0v), src)
     detcenter = detector_points(result, det_x)
     if tilt_correction:
         rays2, pts2, theta_y, theta_z, focus_apprx = tilt_correct(
@@ -836,13 +978,19 @@ def run(system: OpticalSystem, n_h: int, n_v: int, defocus,
         focus_apprx = masked_mean(detcenter, result.valid[None, :], dim=1)
     detcenter2 = detector_points(result, det_x + defocus_wave)
 
-    # OPL with compensated accumulation
     d_last = torch.sqrt(torch.sum((detcenter - result.exit_points) ** 2,
                                   dim=0))
     d_last2 = torch.sqrt(torch.sum((detcenter2 - result.exit_points) ** 2,
                                    dim=0))
-    total = pr.sum_segments(list(result.segments) + [d_last])
-    total2 = pr.sum_segments(list(result.segments) + [d_last2])
+    if precision == "pallas":
+        # the figure route of the fast engine: akbx's plain f64 sum of the
+        # legs (~1e-13 m rms on the demeaned wavefront)
+        total = sum(result.segments) + d_last
+        total2 = sum(result.segments) + d_last2
+    else:
+        # compensated accumulation
+        total = pr.sum_segments(list(result.segments) + [d_last])
+        total2 = pr.sum_segments(list(result.segments) + [d_last2])
     v = result.valid
     wave2 = _wave2(detcenter, detcenter2, total2, v)
     return EngineResult(result, detcenter, detcenter2, total, total2, wave2,

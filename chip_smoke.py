@@ -40,7 +40,7 @@ Phases, one printed line or more each:
      K3 against its twin on the full M4 -> Image stage;
  10. the bench step forward and backward at 2048x2048 (the gradient of the
      bench loss with respect to the 26-vector): K1 and K2 once each, the
-     backward (the plain-f32 twin's VJP) no kernel; the gradient against
+     backward (the plain float64 twin's VJP) no kernel; the gradient against
      the port's f64 engine's, and the deviation-field loss's against the
      f64-field loss's (akbx's pairs, bar 1e-3); a 9x9 gradient on the card
      against the CPU's; times (median of 10): the step, rays/s, peak
@@ -53,7 +53,30 @@ Phases, one printed line or more each:
  12. cli align at 21 rays (indices 2,3: the astigmatism must fall), then
      gradient_align, 20 Adam steps on the bench loss at 2048x2048 over the
      four pitches from the seeded misalignment (the loss must fall).
-Then a JSON line of the kernels, each with its bound: the larger of its
+ 13. the other mirror systems, figure errors and the df32 engine, each
+     from the seeded misalignment after auto_focus at 21:
+     a. KB (akbx's KB7 design; K1 at two mirrors), the Wolter III+III
+        tandem and alternating orderings and the alternating V pair alone
+        (two mirrors): K1 and K2 bit for bit against their twins on each
+        system's constants at 4,194,304 and 1,000,003 rays; the fast
+        engine at 2048x2048 (K1 and K2 once each) against the f64 engine
+        (detcenter 5e-9 m, demeaned OPL 1e-9 m, valid identical); the
+        bench loss's gradient against the f64 engine's (1e-3); K1 and K2
+        alone, the fwd+bwd step, its split and peak memory;
+     b. the Wolter III+I system with calibrate_uv and a seeded 3x3
+        Legendre figure of 1 nm on every mirror, at precision="pallas"
+        (the f64 engine: no kernel launch) at 2048x2048, its time and peak
+        memory; the figures must move the demeaned OPL by >= 0.1 nm, and
+        at 33x33 the card's change must be the CPU's to 1e-3 of its
+        scale; the figure -> wavefront Jacobian of mirror 1 at 33x33 by
+        reverse mode against central differences, >= 3 singular values
+        above 1e-2 of the largest;
+     c. run(precision="df32") at 2048x2048 against the f64 engine
+        (detcenter 1e-8 m, wave2 0.5 nm, trace_df points 2e-9 m), its time
+        and peak memory;
+     and cli trace --system kb|tandem|alternating at its default fan.
+Then a JSON line of the kernels, each with its bound (K1 and K2 also
+at two mirrors, on KB's fan, and their launches on each path of 13): the larger of its
 bytes over 3.35e12 B/s and its f32 operations over 3.35e13 op/s (the H100
 SXM's 67 TFLOP/s f32 counts an FMA as two operations).  The operations
 are counted on each twin, with every f32 two_prod at 2 (a multiply and an
@@ -94,6 +117,7 @@ GRAD_REL = 2e-5         # gradient through K3 vs the f64 path's, akbx's bar
 TARGETS_GRAD_REL = 5e-5
 SOURCE_STAGE_REL = 2e-3  # source -> M1: df32 with the source 145 m away
 SUBSET = 2048           # targets of each stage held against the f64 path
+FIG_NM = 1.0            # figure amplitude of phase 13 (sigma, nm)
 HBM_BPS = 3.35e12       # H100 SXM, bytes/s
 F32_OPS = 3.35e13       # H100 SXM f32 operations/s, an FMA counted once
 
@@ -710,13 +734,15 @@ def build_system(v):
     return build_wolter_3_1(WOLTER_3_1_DEFAULT, AlignParams.from_vector(v))
 
 
-def grad_step(vec, n, loss_of=bench_loss, precision="pallas"):
+def grad_step(vec, n, loss_of=bench_loss, precision="pallas",
+              build=build_system):
     """One forward-and-backward step of the bench: build from the
-    26-vector, trace.run at n x n, the loss, its gradient."""
+    26-vector (``build``, the Wolter III+I system by default), trace.run
+    at n x n, the loss, its gradient."""
     from akbx_torch import trace
 
     v = vec.detach().clone().requires_grad_(True)
-    res = trace.run(build_system(v), n, n, defocus=v[0],
+    res = trace.run(build(v), n, n, defocus=v[0],
                     exit_pupil_uniform=False, tilt_correction=True,
                     precision=precision)
     loss = loss_of(res)
@@ -724,16 +750,16 @@ def grad_step(vec, n, loss_of=bench_loss, precision="pallas"):
     return loss.detach(), v.grad
 
 
-def staged_step(vec, marks):
+def staged_step(vec, marks, build=build_system):
     """``grad_step`` cut by CUDA events into system build, forward (run +
     loss), the trace's backward (the twin's VJP, down to the mirrors'
-    tensors) and the build's backward (the double-f64 placement)."""
+    tensors) and the build's backward (the placement)."""
     from akbx_torch import trace
     from akbx_torch.surfaces import Mirror
 
     v = vec.detach().clone().requires_grad_(True)
     marks.mark(None)
-    system = build_system(v)
+    system = build(v)
     marks.mark("system build")
     tensors = trace._tensors_of(system)
     leaves = [t.detach().requires_grad_(t.requires_grad) for t in tensors]
@@ -939,7 +965,410 @@ def phase12_align(dev, vec, base, tk, hk):
           "gradient_align did not lower the loss")
 
 
+def new_systems(dev):
+    """Builders of the 26-vector for the new systems of phase 13: akbx's
+    KB7 design, the Wolter III+III tandem and alternating orderings, and
+    the alternating ordering's V pair alone."""
+    from akbx_torch import cli
+    from akbx_torch.systems import (AlignParams, KBSpec,
+                                    WOLTER_3_3_ALT_DEFAULT,
+                                    WOLTER_3_3_TANDEM_DEFAULT, build_kb,
+                                    build_wolter_3_3_alternating,
+                                    build_wolter_3_3_tandem)
+
+    kb = KBSpec.from_kb_define(*cli.KB7_DESIGN, device=dev)
+
+    def of(fn):
+        return lambda v: fn(AlignParams.from_vector(v))
+
+    return {
+        "kb": of(lambda p: build_kb(kb, p)),
+        "tandem": of(lambda p: build_wolter_3_3_tandem(
+            WOLTER_3_3_TANDEM_DEFAULT, p)),
+        "alternating": of(lambda p: build_wolter_3_3_alternating(
+            WOLTER_3_3_ALT_DEFAULT, p)),
+        "two_mirror": of(lambda p: build_wolter_3_3_alternating(
+            WOLTER_3_3_ALT_DEFAULT, p, two_mirror_only=True)),
+    }
+
+
+def focused(build, vec):
+    """The seeded vector after auto_focus at 21 (5 iterations)."""
+    from akbx_torch import align
+    from akbx_torch.systems import AlignParams
+
+    p = align.auto_focus(lambda q: build(q.to_vector()),
+                         AlignParams.from_vector(vec), n=21, iters=5)
+    return p.to_vector().detach()
+
+
+def k1_k2_bitwise(system, tk, label):
+    """K1 and K2 against their twins, every output word, on the system's
+    own constants: the N_SIDE^2 fan and N_RAGGED seeded rays.  Returns
+    the fan's K1 and K2 arguments (for timing)."""
+    from akbx_torch import trace
+
+    dev = system.source.device
+    rays = trace.ray_fan(trace.fan_angles(system.fan_h, N_SIDE),
+                         trace.fan_angles(system.fan_v, N_SIDE))
+    n_rays = rays.shape[1]
+    src = system.source[:, None].expand(3, n_rays)
+    chief_d0, chief_p0, consts64 = trace._fast_scalars(system, rays, src,
+                                                       n_rays // 2)
+    (Ms, bvecs, Ds, Dns, Ts, A_noms, Bp_noms, rhos, gCs, gAs, branches,
+     Ps) = consts64
+    n_mirr = Ps.shape[0]
+    consts = tk.pack_consts(Ms, gCs, gAs, Ds, Dns, Ts, A_noms, Bp_noms,
+                            rhos, branches, bvecs)
+    fan_dp = (src - chief_p0).contiguous()
+    fan_dd = (rays - chief_d0).contiguous()
+    rng = np.random.default_rng(SEED)
+    scale = fan_dd.abs().amax(dim=1, keepdim=True)
+    rnd_dd = torch.tensor(rng.uniform(-1.0, 1.0, (3, N_RAGGED)),
+                          dtype=torch.float64, device=dev) * scale
+    rnd_dp = torch.tensor(rng.normal(0.0, 1e-6, (3, N_RAGGED)),
+                          dtype=torch.float64, device=dev)
+    det_x = system.s2f_middle
+    last = slice(3 * (n_mirr - 1), 3 * n_mirr)
+    args = None
+    for which, dp, dd in (("fan", fan_dp, fan_dd), ("random", rnd_dp,
+                                                    rnd_dd)):
+        k1 = tk.trace_deviation(consts, dp, dd, n_mirr)
+        torch.cuda.synchronize()
+        t1 = tk.trace_deviation_reference(consts, dp, dd, n_mirr)
+        same1 = all(torch.equal(a, b) for a, b in zip(k1, t1))
+        valid = t1[8][0] > 0.5
+        q4, d4 = (t1[0][last], t1[1][last]), (t1[2][last], t1[3][last])
+        th_y, th_z = trace._tilt_stats(Dns[-1], f64_of(*d4), valid, True,
+                                       "mean")
+        focus = trace._pre_tilt_focus(Ps[-1], Dns[-1], det_x, f64_of(*q4),
+                                      f64_of(*d4), valid)
+        (R, _, D4r, t_c, _, L, t_c2, _, L2, _, _) = \
+            trace._fast_post_scalars(consts64, det_x, det_x + 1e-3, th_y,
+                                     th_z, focus, True)
+        dcon = torch.cat([tk.pack_det_consts(R, D4r, t_c, L),
+                          tk.pack_det_consts(R, D4r, t_c2, L2)])
+        ins = (*q4, *d4, t1[6], t1[7])
+        k2 = tk.detector(dcon, *ins)
+        torch.cuda.synchronize()
+        t2 = tk.detector_reference(dcon, *ins)
+        same2 = all(torch.equal(a, b) for a, b in zip(k2, t2))
+        print(f"[13a] {label} ({n_mirr} mirrors) {which} N={dp.shape[1]}: "
+              f"K1 bit-identical to its twin {same1}, K2 {same2}; valid "
+              f"{int(valid.sum())}", flush=True)
+        check(same1 and same2, f"{label}: a kernel differs from its twin")
+        if which == "fan":
+            args = ((consts, fan_dp, fan_dd, n_mirr), (dcon, *ins))
+        del k1, t1, k2, t2
+    return args
+
+
+def kernel_times(k1_in, k2_in, tk):
+    """K1 and K2 alone (median of REPS) and their twins (one run), and
+    their bounds, on the arguments of one fan."""
+    n_rays = k1_in[1].shape[1]
+    k1_ms = time_ms(lambda: tk.trace_deviation(*k1_in))
+    k2_ms = time_ms(lambda: tk.detector(*k2_in))
+    k1_plain, _ = timed_once(lambda: tk.trace_deviation_reference(*k1_in))
+    k2_plain, _ = timed_once(lambda: tk.detector_reference(*k2_in))
+    k1_out = tk.trace_deviation(*k1_in)
+    k2_out = tk.detector(*k2_in)
+    k1_ops, _ = count_ops(tk.trace_deviation_reference, k1_in[0],
+                          k1_in[1][:, :1], k1_in[2][:, :1], k1_in[3])
+    k2_ops, _ = count_ops(tk.detector_reference, k2_in[0],
+                          *[t[..., :1] for t in k2_in[1:]])
+    k1_b = bound(nbytes(*k1_in[:3], *k1_out), k1_ops * n_rays)
+    k2_b = bound(nbytes(*k2_in, *k2_out), k2_ops * n_rays)
+    return ({"ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_b[0],
+             "bound_by": k1_b[1], "ops_per_ray": k1_ops},
+            {"ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_b[0],
+             "bound_by": k2_b[1], "ops_per_ray": k2_ops})
+
+
+def gradient_pairs(vec, build):
+    """The bench loss's gradient at N_SIDE x N_SIDE and akbx's two pairs:
+    the f64-field loss on the fast engine against the f64 engine, the
+    deviation-field loss against the f64-field loss (``grad_rel``).
+    Returns (r_engine, r_loss, the worst component as (index, its |g_ref|
+    over the largest, its error), the gradient)."""
+    _, g = grad_step(vec, N_SIDE, build=build)
+    _, g_fast64 = grad_step(vec, N_SIDE, f64_field_loss, build=build)
+    _, g_f64 = grad_step(vec, N_SIDE, f64_field_loss, "f64", build=build)
+    rel = ((g_fast64 - g_f64).abs()
+           / torch.clamp_min(g_f64.abs(), 1e-6 * g_f64.abs().max()))
+    i = int(rel.argmax())
+    worst = (i, float(g_f64[i].abs() / g_f64.abs().max()), float(rel[i]))
+    return grad_rel(g_fast64, g_f64), grad_rel(g, g_fast64), worst, g
+
+
+def phase13a_system(label, build, vec, tk, hk):
+    """One new system at N_SIDE x N_SIDE from the focused seeded vector:
+    the kernels bit for bit, the fast engine against the f64 engine, the
+    bench loss's gradient, times.  Returns (launches, kernel times)."""
+    from akbx_torch import trace
+
+    n_rays = N_SIDE ** 2
+    system = build(vec)
+    k1_in, k2_in = k1_k2_bitwise(system, tk, label)
+
+    reset_counts(tk, hk)
+    res = trace.run(system, N_SIDE, N_SIDE, defocus=vec[0],
+                    exit_pupil_uniform=False, tilt_correction=True,
+                    precision="pallas")
+    loss = bench_loss(res)
+    torch.cuda.synchronize()
+    launched = counts(tk, hk)
+    check(launched == {"K1": 1, "K2": 1, "K3": 0},
+          f"{label}: the fast engine launched {launched}")
+    gold = trace.run(system, N_SIDE, N_SIDE, defocus=vec[0],
+                     exit_pupil_uniform=False, tilt_correction=True,
+                     precision="f64")
+    v = res.valid
+    check(torch.equal(gold.valid, v), f"{label}: valid differs from f64")
+    e_det = float((res.detcenter - gold.detcenter)[:, v].abs().max())
+    w_gold = gold.total_dist - trace.masked_mean(gold.total_dist, v)
+    w_fast = res.total_dist - trace.masked_mean(res.total_dist, v)
+    e_opl = float((w_fast - w_gold)[v].abs().max())
+    print(f"[13a] {label}: fast engine {N_SIDE}x{N_SIDE}, launches "
+          f"{launched}, valid {int(v.sum())} of {n_rays}, loss "
+          f"{float(loss):.9e}; vs the f64 engine: detcenter {e_det:.3e} m "
+          f"(bar 5e-9), demeaned OPL {e_opl:.3e} m (bar 1e-9), valid "
+          "identical", flush=True)
+    check(int(v.sum()) > 0 and e_det <= 5e-9 and e_opl <= 1e-9,
+          f"{label}: fast engine vs f64 beyond akbx's bars")
+    del res, gold, w_gold, w_fast
+
+    r_engine, r_loss, worst, g = gradient_pairs(vec, build)
+    print(f"[13a] {label}: gradient, f64-field loss, fast vs f64 engine "
+          f"{r_engine:.3e}; deviation-field vs f64-field loss {r_loss:.3e} "
+          f"(bars 1e-3, floor 1e-6 of the largest); worst component "
+          f"(index, |g| / largest, error) {worst}; gradient "
+          f"{g.cpu().numpy().tolist()}", flush=True)
+    check(bool(torch.isfinite(g).all()) and r_engine < 1e-3
+          and r_loss < 1e-3, f"{label}: gradient beyond 1e-3")
+    ktimes = kernel_times(k1_in, k2_in, tk)
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    step_ms = time_ms(lambda: grad_step(vec, N_SIDE, build=build))
+    peak_gb = (torch.cuda.max_memory_allocated() - live) / 1e9
+    marks = StageMarks(tk)
+    runs = []
+    for rep in range(REPS + 2):
+        marks.events.clear()
+        torch.cuda.synchronize()
+        staged_step(vec, marks, build=build)
+        torch.cuda.synchronize()
+        if rep >= 2:
+            runs.append(marks.spans())
+    split = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    k1, k2 = ktimes
+    print(f"[13a] {label}: K1 {k1['ms']:.3f} ms (twin {k1['plain_ms']:.3f}, "
+          f"{k1['ops_per_ray']} ops/ray -> bound {k1['bound_ms']:.3f} ms, "
+          f"{k1['bound_by']}, {k1['bound_ms'] / k1['ms']:.3f} of it); K2 "
+          f"{k2['ms']:.3f} ms (twin {k2['plain_ms']:.3f}, bound "
+          f"{k2['bound_ms']:.3f} ms, {k2['bound_by']}, "
+          f"{k2['bound_ms'] / k2['ms']:.3f}); fwd+bwd step {step_ms:.3f} "
+          f"ms (median of {REPS}), {n_rays / (step_ms / 1e3):.6e} rays/s, "
+          f"peak memory {peak_gb:.3f} GB; split (ms): "
+          + "; ".join(f"{k} {x:.3f}" for k, x in split.items()), flush=True)
+    return launched, ktimes
+
+
+def figure_system(vec, dev):
+    """The Wolter III+I system at ``vec``, footprints calibrated, with a
+    seeded 3x3 Legendre figure of nm amplitude on every mirror; and the
+    same system without figures."""
+    from akbx_torch.systems import calibrate_uv
+
+    base = calibrate_uv(build_system(vec))
+    figs = np.random.default_rng(SEED + 7).normal(0.0, FIG_NM * 1e-9,
+                                                  (len(base.mirrors), 3, 3))
+    mirrors = tuple(m._replace(fig_coeffs=torch.tensor(f, device=dev))
+                    for m, f in zip(base.mirrors, figs))
+    return base._replace(mirrors=mirrors), base
+
+
+def phase13b_figure(dev, vec, tk, hk):
+    """Figure errors: the fast route with figures at N_SIDE^2 (the f64
+    engine; no kernel), time and memory; the figure -> wavefront Jacobian
+    of mirror 1 at 33x33."""
+    from akbx_torch import trace
+
+    sysf, base = figure_system(vec, dev)
+    kw = dict(defocus=vec[0], exit_pupil_uniform=False, tilt_correction=True)
+    reset_counts(tk, hk)
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    res = trace.run(sysf, N_SIDE, N_SIDE, precision="pallas", **kw)
+    torch.cuda.synchronize()
+    launched = counts(tk, hk)
+    fig_ms = time_ms(lambda: trace.run(sysf, N_SIDE, N_SIDE,
+                                       precision="pallas", **kw),
+                     reps=3, warmup=1)
+    peak_gb = (torch.cuda.max_memory_allocated() - live) / 1e9
+    torch.cuda.synchronize()
+    check(counts(tk, hk) == {"K1": 0, "K2": 0, "K3": 0},
+          f"the figure route launched {counts(tk, hk)}")
+    bare = trace.run(base, N_SIDE, N_SIDE, precision="f64", **kw)
+    v = res.valid & bare.valid
+    w_fig = res.total_dist - trace.masked_mean(res.total_dist, v)
+    w_bare = bare.total_dist - trace.masked_mean(bare.total_dist, v)
+    moved = float((w_fig - w_bare)[v].abs().max())
+    finite = all(bool(torch.isfinite(getattr(res, f)[..., res.valid]).all())
+                 for f in ("detcenter", "total_dist", "wave2"))
+    print(f"[13b] figures ({FIG_NM} nm, 3x3 Legendre, every mirror) "
+          f"{N_SIDE}x{N_SIDE} at precision='pallas' (the f64 engine): "
+          f"launches {launched}; {fig_ms:.3f} ms (median of 3, CUDA events); "
+          f"peak memory {peak_gb:.3f} GB; valid {int(res.valid.sum())}; the "
+          f"figures move the demeaned OPL by up to {moved:.3e} m",
+          flush=True)
+    del res, bare, w_fig, w_bare
+
+    n = 33
+
+    def figure_shift(d):
+        """The figures' change of the demeaned OPL at n x n on ``d``."""
+        f, b = figure_system(vec.to(d), d)
+        rf, rb = (trace.run(x, n, n, precision=p, defocus=vec[0].to(d),
+                            exit_pupil_uniform=False, tilt_correction=True)
+                  for x, p in ((f, "pallas"), (b, "f64")))
+        ok = rf.valid & rb.valid
+        return torch.where(ok, (rf.total_dist - rf.total_dist[ok].mean())
+                           - (rb.total_dist - rb.total_dist[ok].mean()),
+                           0.0).cpu()
+
+    shift_card, shift_cpu = figure_shift(dev), figure_shift("cpu")
+    # the card's change fitted to the CPU's: its scale must be the CPU's
+    # to 1e-3.  Pointwise they differ by the f64 engine's own card-vs-CPU
+    # noise (libm roundings amplified at grazing incidence; measured on
+    # an H100: 1.069e-10 m here, 5.6e-11 m on the figure-free system at
+    # 17x17)
+    scale = float(torch.sum(shift_card * shift_cpu)
+                  / torch.sum(shift_cpu * shift_cpu))
+    e_shift = float((shift_card - shift_cpu).abs().max())
+    print(f"[13b] the figures' change of the demeaned OPL at {n}x{n}: up "
+          f"to {float(shift_cpu.abs().max()):.6e} m on the CPU; the card's "
+          f"is {scale:.9f} of it (bar 1 +- 1e-3), {e_shift:.3e} m apart at "
+          f"most; at {N_SIDE}x{N_SIDE} up to {moved:.3e} m (bar >= 0.1 x "
+          f"{FIG_NM} nm)", flush=True)
+    check(launched == {"K1": 0, "K2": 0, "K3": 0} and finite
+          and moved >= 0.1 * FIG_NM * 1e-9 and abs(scale - 1.0) <= 1e-3,
+          "the figure route")
+
+    def w_of(fig9):
+        m0 = sysf.mirrors[0]._replace(fig_coeffs=fig9.reshape(3, 3))
+        r = trace.run(sysf._replace(mirrors=(m0,) + sysf.mirrors[1:]), n, n,
+                      defocus=vec[0], exit_pupil_uniform=False)
+        w = r.total_dist - trace.masked_mean(r.total_dist, r.valid)
+        return torch.where(r.valid, w, 0.0)
+
+    x0 = sysf.mirrors[0].fig_coeffs.reshape(9).detach()
+    t0 = time.perf_counter()
+    J = torch.autograd.functional.jacobian(w_of, x0, vectorize=True)
+    jac_s = time.perf_counter() - t0
+    h = 1e-6
+    eye = torch.eye(9, dtype=torch.float64, device=dev)
+    fd = torch.stack([(w_of(x0 + h * e) - w_of(x0 - h * e)) / (2 * h)
+                      for e in eye], dim=1)
+    e_fd = float((fd - J).abs().max() / J.abs().max())
+    sv = torch.linalg.svdvals(J).cpu().numpy()
+    strong = int((sv > 1e-2 * sv[0]).sum())
+    print(f"[13b] figure -> wavefront Jacobian of mirror 1 at {n}x{n} "
+          f"(reverse mode, {jac_s:.3f} s host clock): vs central "
+          f"differences (step {h} m) {e_fd:.3e} of its largest entry (bar "
+          f"1e-3); singular values / the largest "
+          f"{np.round(sv / sv[0], 6).tolist()}, largest {sv[0]:.6e}; "
+          f"{strong} above 1e-2 of it (akbx's test: >= 3)", flush=True)
+    check(e_fd <= 1e-3 and strong >= 3 and sv[0] > 1.0,
+          "figure Jacobian")
+    return launched
+
+
+def phase13c_df32(dev, vec, tk, hk):
+    """The df32 engine at N_SIDE^2 against the f64 engine."""
+    from akbx_torch import trace
+
+    system = build_system(vec)
+    kw = dict(defocus=vec[0], exit_pupil_uniform=False, tilt_correction=True)
+    reset_counts(tk, hk)
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    res = trace.run(system, N_SIDE, N_SIDE, precision="df32", **kw)
+    torch.cuda.synchronize()
+    peak_gb = (torch.cuda.max_memory_allocated() - live) / 1e9
+    df_ms = time_ms(lambda: trace.run(system, N_SIDE, N_SIDE,
+                                      precision="df32", **kw),
+                    reps=3, warmup=1)
+    launched = counts(tk, hk)
+    gold = trace.run(system, N_SIDE, N_SIDE, precision="f64", **kw)
+    check(torch.equal(gold.valid, res.valid), "df32: valid differs")
+    v = res.valid
+    e_det = float((res.detcenter - gold.detcenter)[:, v].abs().max())
+    e_wave = float((res.wave2 - gold.wave2)[v].abs().max())
+    del res, gold
+    rays = trace.ray_fan(trace.fan_angles(system.fan_h, N_SIDE),
+                         trace.fan_angles(system.fan_v, N_SIDE))
+    src = system.source[:, None].expand(3, rays.shape[1])
+    tdf = trace.trace_df(system, rays, src)
+    t64 = trace.trace(system, rays, src)
+    e_pts = max(float((a - b)[:, v].abs().max())
+                for a, b in zip(tdf.points, t64.points))
+    print(f"[13c] df32 engine {N_SIDE}x{N_SIDE}: launches {launched}; "
+          f"{df_ms:.3f} ms (median of 3, CUDA events), peak memory "
+          f"{peak_gb:.3f} GB; vs the f64 engine: detcenter {e_det:.3e} m "
+          f"(bar 1e-8), wave2 {e_wave:.3e} nm (bar 0.5), trace_df points "
+          f"{e_pts:.3e} m (bar 2e-9)", flush=True)
+    check(e_det <= 1e-8 and e_wave <= 0.5 and e_pts <= 2e-9,
+          "df32 engine vs f64 beyond akbx's bars")
+
+
+def phase13_cli(dev, base, tk, hk):
+    """cli trace --system kb|tandem|alternating on the card, once each at
+    its default fan (65, autofocus at 21)."""
+    import contextlib
+    import io as _io
+
+    from akbx_torch import cli
+
+    for system in ("kb", "tandem", "alternating"):
+        buf = _io.StringIO()
+        reset_counts(tk, hk)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["trace", "--system", system, "--out",
+                           os.path.join(base, "cli13"), "--device",
+                           str(dev)])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        out = json.loads(buf.getvalue().strip().splitlines()[-1])
+        print(f"[13] cli trace --system {system}: rc {rc}, {cli_s:.3f} s "
+              f"host clock, launches {counts(tk, hk)}; {out}", flush=True)
+        check(rc == 0 and out["valid_rays"] > 0
+              and np.isfinite(out["pv_6sigma_lambda"]),
+              f"cli trace --system {system}")
+
+
+def two_mirror(t):
+    """The JSON entry of a kernel's times on KB's fan (two mirrors)."""
+    return {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+
+
+def phase13(dev, vec, base, tk, hk):
+    """The other mirror systems, figure errors and the df32 engine."""
+    launches, times = {}, {}
+    for label, build in new_systems(dev).items():
+        v = focused(build, vec)
+        launches[label], times[label] = phase13a_system(label, build, v, tk,
+                                                        hk)
+    v31 = focused(build_system, vec)
+    launches["figure"] = phase13b_figure(dev, v31, tk, hk)
+    phase13c_df32(dev, v31, tk, hk)
+    phase13_cli(dev, base, tk, hk)
+    return launches, times
+
+
 def main():
+    t_start = time.perf_counter()
     # --- 1. the card -----------------------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -1007,9 +1436,10 @@ def main():
         valid = t1[8][0] > 0.5
         q4 = (t1[0][9:12], t1[1][9:12])
         d4 = (t1[2][9:12], t1[3][9:12])
-        th_y, th_z = trace._tilt_stats(Dns[-1], d4[0], valid, True, "mean")
-        focus = trace._pre_tilt_focus(Ps[-1], Dns[-1], det_x, q4[0], d4[0],
-                                      valid)
+        th_y, th_z = trace._tilt_stats(Dns[-1], f64_of(*d4), valid, True,
+                                       "mean")
+        focus = trace._pre_tilt_focus(Ps[-1], Dns[-1], det_x, f64_of(*q4),
+                                      f64_of(*d4), valid)
         (R, P4r, D4r, t_c, _, L, t_c2, _, L2, _, _) = \
             trace._fast_post_scalars(consts64, det_x, det_x + 1e-3, th_y,
                                      th_z, focus, True)
@@ -1093,8 +1523,8 @@ def main():
     e_small = float((small[0].detcenter.cpu() - small[1].detcenter).abs().max())
     e_small_w = float((small[0].w32.cpu() - small[1].w32).abs().max())
     e_small_t = abs(float(small[0].theta_y) - float(small[1].theta_y))
-    # same kernels/twins bit for bit; the float32 tilt-angle mean sums in
-    # another order on the card (~1e-9 rad over a ~0.2 m lever arm)
+    # same kernels/twins bit for bit; the f64 reductions and libm calls
+    # round differently on the card
     print(f"[5] 9x9 on the card vs on the CPU: detcenter {e_small:.3e} m, "
           f"w32 {e_small_w:.3e} m (bar 1e-9), theta_y {e_small_t:.3e} rad",
           flush=True)
@@ -1189,25 +1619,38 @@ def main():
         phase11_cli_trace(dev, vec, base, tk, hk)
         phase12_align(dev, vec, base, tk, hk)
 
+        # --- 13. the other systems, figure errors, the df32 engine ------
+        t13 = time.perf_counter()
+        print(f"[13] phases 1-12 took {t13 - t_start:.1f} s", flush=True)
+        launches13, times13 = phase13(dev, vec, base, tk, hk)
+        print(f"[13] phase 13 took {time.perf_counter() - t13:.1f} s",
+              flush=True)
+
     kernels = [
         {"name": "K1 trace_deviation (bounce chain)", "route": "cuda",
          "source": "akbx_torch/csrc/trace_kernel.cu",
          "replaces": "akbx/kernels/trace_kernel.py:227",
          "launches": launches["K1"], "max_abs_err": k_err["K1"][1],
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound[0],
-         "bound_by": k1_bound[1], "library_ms": None},
+         "bound_by": k1_bound[1], "library_ms": None,
+         "n_mirr_2": two_mirror(times13["kb"][0]),
+         "launches_phase_13": {k: v["K1"] for k, v in launches13.items()}},
         {"name": "K2 detector (tilt + detector planes + OPL)",
          "route": "cuda", "source": "akbx_torch/csrc/trace_kernel.cu",
          "replaces": "akbx/kernels/trace_kernel.py:469",
          "launches": launches["K2"], "max_abs_err": k_err["K2"][1],
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound[0],
-         "bound_by": k2_bound[1], "library_ms": None},
+         "bound_by": k2_bound[1], "library_ms": None,
+         "n_mirr_2": two_mirror(times13["kb"][1]),
+         "launches_phase_13": {k: v["K2"] for k, v in launches13.items()}},
         {"name": "K3 huygens (df32 Huygens contraction)", "route": "cuda",
          "source": "akbx_torch/csrc/huygens_kernel.cu",
          "replaces": "akbx/kernels/huygens.py:150",
          "launches": w_launches, "max_abs_err": k3_err, **k3_t,
          "library_ms": None},
     ]
+    print(f"[13] wall time {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

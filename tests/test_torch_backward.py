@@ -2,7 +2,8 @@
 ``trace.run(precision="pallas")`` against akbx's ``jax.grad`` of the same
 loss, and within the port against its f64 engine, at a 9x9 fan; the
 backward launches no kernel; ``trace_pallas`` differentiates as
-``trace_dev32``.
+``trace_dev32``.  The port's backward twin runs in float64, akbx's in
+float32 (ROADMAP F6).
 
 Bar, akbx's own (tests/test_trace_pallas.py): |g - g_ref| below 1e-3 of
 |g_ref|, floored at 1e-6 of the gradient's largest entry."""
@@ -80,12 +81,18 @@ def akbx_grads():
 
 @pytest.mark.parametrize("which", sorted(VECS))
 def test_grad_matches_akbx(akbx_grads, which):
-    """The same loss and precision in both packages: each twin carries its
-    own f32 rounding (sums in another order, XLA's contractions), so the
-    two sit further apart than either from the f64 engine (measured
-    5.7e-4 at zero, 6.0e-4 seeded)."""
+    """The same loss and precision in both packages: akbx's float32 twin
+    carries its rounding, the port's float64 twin next to none, so the
+    two sit as far apart as akbx's gradient from the f64 engine's
+    (measured 4.4e-4 at zero, 4.8e-4 seeded; with a float32 twin in the
+    port, 5.7e-4 and 6.0e-4).  The gradient is dense, and exactly 0 only
+    where the f64 engine's is (at zero 3 channels, components 6, 18 and
+    25: with the tilt angles reduced in f32, ROADMAP F9, one of them took
+    rounding noise)."""
     g = port_grad(VECS[which])
-    assert np.isfinite(g).all() and np.count_nonzero(g) >= 24
+    assert np.isfinite(g).all() and np.count_nonzero(g) >= 23
+    g64 = port_grad(VECS[which], precision="f64")
+    assert ((g == 0) <= (g64 == 0)).all()
     assert rel_err(g, akbx_grads[which]) < GRAD_REL
 
 
@@ -93,7 +100,7 @@ def test_grad_matches_akbx(akbx_grads, which):
 def test_grad_matches_port_f64(which):
     """The f64-field loss through the fast path against the f64 engine's
     (akbx's TestBackward::test_grad_matches_f64_path, within the port;
-    measured 1.4e-4 at zero, 3.0e-5 seeded)."""
+    measured 5.5e-7 at zero, 9.7e-7 seeded)."""
     g64 = port_grad(VECS[which], precision="f64")
     assert rel_err(port_grad(VECS[which], dev_fields=False), g64) < GRAD_REL
 
@@ -102,7 +109,7 @@ def test_grad_matches_port_f64(which):
 def test_dev_loss_grad_matches_f64_field_loss(which):
     """The deviation-field loss and the f64-field loss through the fast
     path share one twin VJP (akbx's test_dev_loss_grad_matches; measured
-    2.8e-5 at zero, 1.5e-4 seeded)."""
+    2.0e-7 at zero, 1.2e-7 seeded)."""
     g_dev = port_grad(VECS[which])
     assert rel_err(g_dev, port_grad(VECS[which], dev_fields=False)) < GRAD_REL
 
@@ -112,7 +119,8 @@ def test_dev_loss_grad_matches_f64_field_loss(which):
                          ids=["no_tilt", "extremes"])
 def test_grad_options_match_port_f64(kw):
     """Without tilt removal, and with the extremes beam-axis estimator:
-    the fast path's gradient against the f64 engine's."""
+    the fast path's gradient against the f64 engine's (measured 6.9e-7
+    and 6.8e-7)."""
     g64 = port_grad(SEEDED, precision="f64", **kw)
     assert rel_err(port_grad(SEEDED, dev_fields=False, **kw), g64) < GRAD_REL
 
@@ -156,7 +164,8 @@ def test_backward_launches_no_kernel(monkeypatch):
 def test_refan_backward(monkeypatch):
     """With the exit-pupil re-fan the fast path runs K1 twice (pre-trace
     and run_fast) and K2 once, and its gradient (through the re-fanned
-    angles too) agrees with the f64 engine's re-fanned one."""
+    angles too) agrees with the f64 engine's re-fanned one (measured
+    1.6e-6)."""
     counting = _Counting(ttr.tk)
     monkeypatch.setattr(ttr, "tk", counting)
     g = port_grad(SEEDED, dev_fields=False, exit_pupil_uniform=True)
@@ -167,9 +176,10 @@ def test_refan_backward(monkeypatch):
 
 def test_trace_pallas_differentiates_as_trace_dev32():
     """trace_pallas's backward is the VJP of trace_dev32's deviation
-    chain: a loss on its points, directions and segments has the same
-    gradient through either: the same f32 operations, the gradients of
-    the mirrors' tensors summed in another order (measured 1.5e-9 of one
+    chain in the backward twin's arithmetic (float64): a loss on its
+    points, directions and segments has the same gradient through
+    either: the same operations, the gradients of the mirrors' tensors
+    summed in another order (in float32, measured 1.5e-9 of one
     component, 1.8e-12 of the largest); 1e-10 of the largest."""
     def grad(fn):
         v = torch.tensor(SEEDED, requires_grad=True)
@@ -184,6 +194,6 @@ def test_trace_pallas_differentiates_as_trace_dev32():
         loss.backward()
         return v.grad.numpy()
 
-    g_dev = grad(ttr.trace_dev32)
+    g_dev = grad(lambda *a: ttr.trace_dev32(*a, dtype=torch.float64))
     np.testing.assert_allclose(grad(ttr.trace_pallas), g_dev, rtol=0,
                                atol=1e-10 * np.abs(g_dev).max())

@@ -1,7 +1,8 @@
 """The CUDA kernels K1/K2/K3 and df32.cuh's two_prod on the card against
-their PyTorch twins, the fast path and its gradient on the card against
-the same on the CPU, and the Huygens path on the card against the same
-on the CPU.
+their PyTorch twins (K1 and K2 on every mirror system's constants), the
+fast path and its gradient (Wolter III+I and KB) on the card against the
+same on the CPU, the figure and df32 routes on the card, and the Huygens
+path on the card against the same on the CPU.
 
 Needs a CUDA card and nvcc; skips otherwise.  This file imports no jax,
 so it runs on a machine without it:
@@ -18,7 +19,12 @@ from akbx_torch.core import precision
 from akbx_torch.kernels import df32_check
 from akbx_torch.kernels import huygens as hk
 from akbx_torch.kernels import trace_kernel as tk
-from akbx_torch.systems import AlignParams, WOLTER_3_1_DEFAULT, build_wolter_3_1
+from akbx_torch.systems import (AlignParams, KBSpec, WOLTER_3_1_DEFAULT,
+                                WOLTER_3_3_ALT_DEFAULT,
+                                WOLTER_3_3_TANDEM_DEFAULT, build_kb,
+                                build_wolter_3_1,
+                                build_wolter_3_3_alternating,
+                                build_wolter_3_3_tandem, calibrate_uv)
 
 pytestmark = pytest.mark.cuda
 
@@ -29,6 +35,9 @@ KERNEL_REL = 1e-11
 # K3 vs its twin, of the field's scale: the same f32 terms, summed in
 # another order inside each 256-source tile (measured <= 5.3e-7)
 HUYGENS_REL = 1e-6
+# the df32 engine on the card vs on the CPU at 17x17, (detcenter,
+# demeaned OPL) m: measured 3.6e-10 m and 4.3e-12 m on an H100
+DF32_CARD_BARS = (1e-9, 1e-11)
 
 
 @pytest.fixture(scope="module")
@@ -240,6 +249,140 @@ def test_fast_path_gradient_card_matches_cpu(dev, refan):
     scale = np.abs(cpu).max()
     assert (np.abs(card - cpu)
             / np.maximum(np.abs(cpu), 1e-6 * scale)).max() < 1e-3
+
+
+KB7 = (146.0, 0.21, 0.16742, 0.180, 0.030, 0.15525, 0.05)
+SYSTEMS = {
+    "kb": lambda p: build_kb(KBSpec.from_kb_define(*KB7, device="cpu"), p),
+    "tandem": lambda p: build_wolter_3_3_tandem(WOLTER_3_3_TANDEM_DEFAULT, p),
+    "alternating": lambda p: build_wolter_3_3_alternating(
+        WOLTER_3_3_ALT_DEFAULT, p),
+    "two_mirror": lambda p: build_wolter_3_3_alternating(
+        WOLTER_3_3_ALT_DEFAULT, p, two_mirror_only=True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SYSTEMS))
+def test_k1_k2_bit_identical_on_every_system(dev, name):
+    """K1 (at two mirrors for KB and the two-mirror ordering, four for the
+    III+III orderings) and K2 on each system's own constants: every output
+    word equals the twin's, on a 33x33 fan and on 10,003 seeded rays."""
+    vec = np.random.default_rng(1).normal(0.0, 1e-5, 26)
+    s = SYSTEMS[name](AlignParams.from_vector(vec, device=dev))
+    rays = trace.ray_fan(trace.fan_angles(s.fan_h, 33),
+                         trace.fan_angles(s.fan_v, 33))
+    src = s.source[:, None].expand(3, rays.shape[1])
+    chief_d0, chief_p0, c64 = trace._fast_scalars(s, rays, src,
+                                                  rays.shape[1] // 2)
+    (Ms, bvecs, Ds, Dns, Ts, A, Bp, rho, gC, gA, br, Ps) = c64
+    table = tk.pack_consts(Ms, gC, gA, Ds, Dns, Ts, A, Bp, rho, br, bvecs)
+    n_mirr = len(s.mirrors)
+    assert table.shape == (n_mirr, 64)
+    dd_fan = (rays - chief_d0).contiguous()
+    rng = np.random.default_rng(9)
+    n = 10_003
+    dd = torch.tensor(rng.uniform(-1, 1, (3, n)), dtype=torch.float64,
+                      device=dev) * dd_fan.abs().amax(dim=1, keepdim=True)
+    dp = torch.tensor(rng.normal(0, 1e-6, (3, n)), dtype=torch.float64,
+                      device=dev)
+    for dp_, dd_ in (((src - chief_p0).contiguous(), dd_fan), (dp, dd)):
+        k1 = tk.trace_deviation(table, dp_, dd_, n_mirr)
+        t1 = tk.trace_deviation_reference(table, dp_, dd_, n_mirr)
+        for k, (a, b) in enumerate(zip(k1, t1)):
+            assert torch.equal(a, b), f"K1 output {k}"
+        last = slice(3 * n_mirr - 3, 3 * n_mirr)
+        R = trace._tilt_rotation(torch.tensor(1e-4, dtype=torch.float64,
+                                              device=dev),
+                                 torch.tensor(-2e-4, dtype=torch.float64,
+                                              device=dev))
+        f64 = dict(dtype=torch.float64, device=dev)
+        dcon = torch.cat([tk.pack_det_consts(R, Dns[-1],
+                                             torch.tensor(0.2, **f64),
+                                             torch.tensor(0.2, **f64)),
+                          tk.pack_det_consts(R, Dns[-1],
+                                             torch.tensor(0.21, **f64),
+                                             torch.tensor(0.21, **f64))])
+        ins = (t1[0][last], t1[1][last], t1[2][last], t1[3][last], t1[6],
+               t1[7])
+        ins = tuple(t.contiguous() for t in ins)
+        for k, (a, b) in enumerate(zip(tk.detector(dcon, *ins),
+                                       tk.detector_reference(dcon, *ins))):
+            assert torch.equal(a, b), f"K2 output {k}"
+
+
+def test_kb_fast_path_gradient_card_matches_cpu(dev):
+    """The bench loss's gradient through KB's fast path at 33x33 (K1 at
+    two mirrors) on the card against the CPU's: K1 and K2 launch once
+    each, and each component agrees to 1e-3, floored at 1e-6 of the
+    largest; the 12 channels that drive no KB mirror are 0 on both."""
+    vec = np.random.default_rng(1).normal(0.0, 1e-5, 26)
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        v = torch.tensor(vec, device=d, requires_grad=True)
+        s = SYSTEMS["kb"](AlignParams.from_vector(v))
+        k1, k2 = tk.trace_deviation.launches, tk.detector.launches
+        r = trace.run(s, 33, 33, defocus=v[0], exit_pupil_uniform=False,
+                      precision="pallas")
+        sy, sz = trace.spot_size(r.ddet32, r.valid)
+        loss = torch.sum(torch.where(r.valid, r.w32, 0.0) ** 2) * 1e18 + sy + sz
+        loss.backward()
+        if d == dev:
+            torch.cuda.synchronize()
+            assert (tk.trace_deviation.launches - k1,
+                    tk.detector.launches - k2) == (1, 1)
+        grads.append(v.grad.cpu().numpy())
+    card, cpu = grads
+    assert np.isfinite(card).all() and (card[14:] == 0).all()
+    scale = np.abs(cpu).max()
+    assert (np.abs(card - cpu)
+            / np.maximum(np.abs(cpu), 1e-6 * scale)).max() < 1e-3
+
+
+def test_figure_and_df32_routes_on_the_card(dev):
+    """With figure errors, run(precision="pallas") launches no kernel (K1
+    does not model figures).  It, the f64 engine and the df32 engine on
+    the figure-free system, all without the re-fan at 17x17, agree with
+    the same runs on the CPU.  The same tensor ops run on both, but the
+    card's tan, sin, cos and atan round differently by an ulp, and the
+    f64 engine amplifies such rounding at grazing incidence (its own
+    noise is ~2.8e-10 m rms of OPL, akbx's tests/test_trace_df.py): the
+    figure route and the figure-free f64 engine, its witness, to 1e-9 m
+    of detcenter and 1e-10 m of demeaned OPL, the card-vs-CPU bar of the
+    fast path above (measured: figure route 5.6e-10 m and 5.7e-11 m).
+    The df32 engine takes only its chief ray through libm and its square
+    roots may differ by an ulp: its own bars, DF32_CARD_BARS (its
+    detector points, reduced and tilted by the f64 engine's functions,
+    read as far apart as the f64 engine's: 3.6e-10 m against 5.4e-10 m;
+    its OPL 13x closer: 4.3e-12 m against 5.6e-11 m)."""
+    fig = np.random.default_rng(7).normal(0.0, 1e-9, (3, 3))
+    out = []
+    for d in (dev, torch.device("cpu")):
+        s = calibrate_uv(build_wolter_3_1(WOLTER_3_1_DEFAULT,
+                                          AlignParams.zeros(d)))
+        m0 = s.mirrors[0]._replace(fig_coeffs=torch.tensor(fig, device=d))
+        sf = s._replace(mirrors=(m0,) + s.mirrors[1:])
+        k1, k2 = tk.trace_deviation.launches, tk.detector.launches
+        kw = dict(defocus=0.0, exit_pupil_uniform=False)
+        rf = trace.run(sf, 17, 17, precision="pallas", **kw)
+        if d == dev:
+            torch.cuda.synchronize()
+            assert (tk.trace_deviation.launches, tk.detector.launches) == \
+                (k1, k2)
+        out.append((rf, trace.run(s, 17, 17, precision="f64", **kw),
+                    trace.run(s, 17, 17, precision="df32", **kw)))
+    bars = {"figure": (1e-9, 1e-10), "f64": (1e-9, 1e-10),
+            "df32": DF32_CARD_BARS}
+    errs = {}
+    for name, a, b in zip(bars, out[0], out[1]):
+        assert torch.equal(a.valid.cpu(), b.valid)
+        wa = a.total_dist.cpu() - a.total_dist.cpu().mean()
+        wb = b.total_dist - b.total_dist.mean()
+        errs[name] = (float((a.detcenter.cpu() - b.detcenter).abs().max()),
+                      float((wa - wb).abs().max()))
+    print("card vs CPU, (detcenter, demeaned OPL) m:", errs)
+    for name, (e_det, e_opl) in errs.items():
+        assert e_det <= bars[name][0] and e_opl <= bars[name][1], \
+            (name, e_det, e_opl)
 
 
 def _huygens_inputs(dev, n, m, lam, seed):

@@ -61,8 +61,8 @@ def test_slice_matches_akbx(both):
     valid identical.  theta <= 2e-8 rad: the tilt angle is a float32
     masked mean over angles up to 0.12 rad, and akbx's float32 sum rounds
     by 3.2e-9 (zero) and 7.6e-9 rad (seeded) against the exact mean of
-    the same float32 angles, where the port's rounds by ~2e-10; a 1e-9
-    bar would test the order of a float32 sum."""
+    the same float32 angles, where the port reduces in f64 (ROADMAP F9);
+    a 1e-9 bar would test akbx's float32 sum."""
     j, t = both[2]["pallas"]
     np.testing.assert_array_equal(_np(t.valid), _np(j.valid))
     assert bool(t.valid.all())
@@ -204,10 +204,12 @@ def test_fast_trace_is_lazy():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(exit_pupil_uniform=False, precision="df32"),
+    dict(exit_pupil_uniform=False, precision="df32", ray_sharding=object()),
     dict(exit_pupil_uniform=False, precision="pallas", ray_sharding=object()),
 ], ids=["df32", "ray_sharding"])
 def test_unported_options_raise(kwargs):
+    """Ray sharding (ROADMAP item 14) raises on either deviation engine;
+    precision='df32' alone runs (tests/test_torch_trace_df.py)."""
     s = tsys.build_wolter_3_1(tsys.WOLTER_3_1_DEFAULT,
                               tsys.AlignParams.zeros("cpu"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
