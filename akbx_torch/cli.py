@@ -7,12 +7,19 @@ ported so far).
   with the exit-pupil re-fan, export;
 * ``propagate``   — Huygens stage pipeline from a handoff directory, with
   stage caching (``--config`` takes a WaveConfig);
-* ``align``       — sensitivity-matrix alignment solve.
+* ``align``       — sensitivity-matrix alignment solve;
+* ``design-kb``    — KB design from the 7 parameters -> kb_design.txt;
+* ``sweep-kb``     — KB design sweep over l1h: design, autofocus, trace,
+  wavefront, Legendre and the artifact set of each run, then the PV-vs-NA
+  fit;
+* ``fab-profiles`` — machining profile CSVs of the Wolter III+I design;
+* ``design-na``    — NA-constrained ellipse design.
 
 ``--system`` picks the mirror system: ``akb`` (Wolter III+I), ``kb``
 (akbx's KB7 design), ``tandem`` or ``alternating`` (Wolter III+III).
-akbx's other commands raise ``NotImplementedError``.  Each prints
-akbx's JSON summary line and runs on ``--device`` (default ``cuda``).
+akbx's ``plot`` and ``gui`` raise ``NotImplementedError``.  Each command
+prints akbx's JSON summary line and runs on ``--device`` (default
+``cuda``).
 Run ``python -m akbx_torch.cli <cmd> --help``.
 """
 
@@ -224,14 +231,143 @@ def cmd_propagate(args):
     return 0
 
 
+def cmd_design_kb(args):
+    from akbx_torch import design
+    from akbx_torch.tooling import write_kb_design
+
+    kb = design.kb_define(args.l1h, args.l2h, args.inc_h, args.mlen_h,
+                          args.wd_v, args.inc_v, args.mlen_v,
+                          device=args.device)
+    os.makedirs(args.out, exist_ok=True)
+    path = write_kb_design(args.out, kb)
+    print(json.dumps({"kb_design": path, "na_h": float(kb.na_h),
+                      "na_v": float(kb.na_v), "gap": float(kb.gap)}))
+    return 0
+
+
+def cmd_sweep_kb(args):
+    from akbx_torch import tooling
+
+    values = np.linspace(args.start, args.stop, args.num)
+    out = tooling.kb_design_sweep(values,
+                                  (args.l2h, args.inc_h, args.mlen_h,
+                                   args.wd_v, args.inc_v, args.mlen_v),
+                                  args.out, n_rays=args.rays,
+                                  device=args.device)
+    # a 4th-order fit needs five points
+    r2 = tooling.fit_pv_vs_na(out["na"], out["pv"])[1] \
+        if len(values) > 4 else None
+    print(json.dumps({"na": out["na"].tolist(), "pv": out["pv"].tolist(),
+                      "r2": r2}))
+    return 0
+
+
+def mirror_centers(spec, device):
+    """Axial centres of the Wolter III+I V mirrors on their canonical
+    conics: the chief ray's intersection with the hyperbola, and the
+    ellipse's with the ray from the hyperbola's far focus at the Wolter III
+    angle theta3."""
+    import torch
+
+    from akbx_torch import design
+    from akbx_torch.core import geometry as geo
+    from akbx_torch.surfaces import ellipse_coeffs, hyperbola_coeffs
+
+    def f64(x):
+        return torch.as_tensor(x, dtype=torch.float64, device=device)
+
+    def ray(theta):
+        return torch.stack([torch.cos(theta), torch.zeros_like(theta),
+                            torch.sin(theta)])[:, None]
+
+    theta1 = f64(spec.theta1_v)
+    c_hyp = geo.shift_x(hyperbola_coeffs(spec.a_hyp_v, spec.b_hyp_v, "xz",
+                                         device=device), f64(spec.org_hyp_v))
+    xc_hyp = float(geo.intersect(c_hyp, ray(theta1),
+                                 f64([[0.0], [0.0], [0.0]]))[0][0, 0])
+    c_ell = geo.shift_x(ellipse_coeffs(spec.a_ell_v, spec.b_ell_v, "xz",
+                                       device=device),
+                        f64(2 * spec.org_hyp_v + spec.org_ell_v))
+    th3 = design.wolter_iii_angles(
+        spec.a_hyp_v, spec.b_hyp_v, spec.org_hyp_v, spec.a_ell_v,
+        spec.b_ell_v, spec.org_ell_v, theta1)[1]
+    src3 = f64([[2 * spec.org_hyp_v], [0.0], [0.0]])
+    xc_ell = float(geo.intersect(c_ell, ray(th3), src3)[0][0, 0])
+    return {"hyp_v": xc_hyp, "ell_v": xc_ell}
+
+
+def cmd_fab_profiles(args):
+    from akbx_torch import fab
+    from akbx_torch.systems import WOLTER_3_1_DEFAULT as spec
+
+    os.makedirs(args.out, exist_ok=True)
+    jobs = {
+        "hyp_v": (lambda x: fab.hyperbola_profile(
+            spec.a_hyp_v, spec.b_hyp_v, spec.org_hyp_v, x),
+            spec.length_hyp_v),
+        "ell_v": (lambda x: fab.ellipse_profile(
+            spec.a_ell_v, spec.b_ell_v, 2 * spec.org_hyp_v + spec.org_ell_v,
+            x), spec.length_ell_v),
+    }
+    centers = mirror_centers(spec, args.device)
+
+    outputs = {}
+    for name, (fn, length) in jobs.items():
+        prof = fab.machining_profile(fn, centers[name], length, num=args.num)
+        raw = fab.export_profile_csv(
+            os.path.join(args.out, f"{name}_rotated_before_offset.csv"),
+            prof["x_raw"], prof["y_raw"])
+        merged = fab.export_profile_csv(
+            os.path.join(args.out, f"{name}_rotated_0.1mmpitch.csv"),
+            prof["x_merged"], prof["y_merged"], pitch_mm=0.1)
+        outputs[name] = {"raw": raw, "merged": merged,
+                         "rotation_deg": float(np.degrees(prof["rotation"]))}
+
+    # the H pair: the Wolter-I combined ell+hyp max-merged profile
+    w1 = fab.wolter1_combined_profile(spec.a_ell_h, spec.b_ell_h,
+                                      spec.a_hyp_h, spec.b_hyp_h,
+                                      spec.theta1_h, spec.length_ell_h,
+                                      num=args.num)
+    raw = fab.export_profile_csv(
+        os.path.join(args.out, "wolter1_rotated_before_offset.csv"),
+        np.concatenate([w1["x_ell"], w1["x_hyp"]]),
+        np.concatenate([w1["y_ell"], w1["y_hyp"]]))
+    fab.export_profile_csv(os.path.join(args.out, "wolter1_rotated.csv"),
+                           w1["x_merged"], w1["y_merged"])
+    merged = fab.export_profile_csv(
+        os.path.join(args.out, "wolter1_rotated_0.1mmpitch.csv"),
+        w1["x_merged"], w1["y_merged"], pitch_mm=0.1)
+    outputs["wolter1"] = {"raw": raw, "merged": merged,
+                          "rotation_deg": float(np.degrees(w1["rotation"]))}
+    print(json.dumps(outputs))
+    return 0
+
+
+# the fields of cli design-na's JSON line, as akbx prints them
+DESIGN_NA_FIELDS = ("theta_i1", "theta_i2", "theta_o1", "theta_o2", "x_1",
+                    "x_2", "x_3", "l_i1", "l_i2", "l_o1", "l_o2", "a", "b2",
+                    "f", "na_i_result", "check_a_error", "check_na_i_error",
+                    "check_x_3_error")
+
+
+def cmd_design_na(args):
+    from akbx_torch import design_na
+
+    d = design_na.solve_na_constrained(args.x1, args.x3, args.na_i,
+                                       args.na_o, device=args.device)
+    out = {k: float(getattr(d, k)) for k in DESIGN_NA_FIELDS}
+    out["iterations"] = int(d.iterations)
+    print(json.dumps(out))
+    return 0
+
+
 def cmd_unported(args):
     raise NotImplementedError(
         f"cli {args.cmd} is not ported yet (ROADMAP Queue 1, item 15)")
 
 
 # akbx's commands that the port does not have yet
-UNPORTED = ("design-kb", "sweep-kb", "fab-profiles", "design-na", "plot",
-            "gui")
+UNPORTED = ("plot", "gui")
 
 
 def main(argv=None):
@@ -280,6 +416,42 @@ def main(argv=None):
     p.add_argument("--iters", type=int, default=1)
     p.add_argument("--damping", type=float, default=1.0)
     p.set_defaults(fn=cmd_align)
+
+    p = sub.add_parser("design-kb", help="KB design from 7 params")
+    for name, default in zip(("l1h", "l2h", "inc_h", "mlen_h", "wd_v",
+                              "inc_v", "mlen_v"), KB7_DESIGN):
+        p.add_argument(f"--{name.replace('_', '-')}", dest=name, type=float,
+                       default=default)
+    p.add_argument("--out", default=".")
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_design_kb)
+
+    p = sub.add_parser("sweep-kb", help="KB design sweep over l1h")
+    p.add_argument("--start", type=float, default=145.0)
+    p.add_argument("--stop", type=float, default=147.0)
+    p.add_argument("--num", type=int, default=3)
+    p.add_argument("--rays", type=int, default=33)
+    for name, default in zip(("l2h", "inc_h", "mlen_h", "wd_v", "inc_v",
+                              "mlen_v"), KB7_DESIGN[1:]):
+        p.add_argument(f"--{name.replace('_', '-')}", dest=name, type=float,
+                       default=default)
+    p.add_argument("--out", default="sweep_out")
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_sweep_kb)
+
+    p = sub.add_parser("fab-profiles", help="machining profile CSVs")
+    p.add_argument("--num", type=int, default=100000)
+    p.add_argument("--out", default="fab_out")
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_fab_profiles)
+
+    p = sub.add_parser("design-na", help="NA-constrained ellipse design")
+    p.add_argument("--x1", type=float, default=146.0)
+    p.add_argument("--x3", type=float, default=0.55)
+    p.add_argument("--na-i", dest="na_i", type=float, default=1e-4)
+    p.add_argument("--na-o", dest="na_o", type=float, default=0.02)
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_design_na)
 
     args = parser.parse_args(argv)
     return args.fn(args)

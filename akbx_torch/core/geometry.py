@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from akbx_torch.utils import linspace
+
 # (4, 4) gather of the 10-vector into the symmetric homogeneous matrix,
 # and the factor of each entry (off-diagonal entries carry half a coeff)
 QUADRIC_IDX = ((0, 3, 4, 6), (3, 1, 5, 7), (4, 5, 2, 8), (6, 7, 8, 9))
@@ -34,6 +36,17 @@ def normalize(v: torch.Tensor, dim: int = 0, eps: float = 0.0) -> torch.Tensor:
     norm = torch.sqrt(torch.sum(v * v, dim=dim, keepdim=True))
     safe = torch.where(norm > eps, norm, 1.0)
     return v / safe
+
+
+def quadric_eval(coeffs: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """Evaluate S(x, y, z) of one (10,) quadric at points (3, N) -> (N,)."""
+    a, b, c, d, e, f, g, h, i, j = coeffs.unbind(-1)
+    x, y, z = points
+    return (
+        a * x * x + b * y * y + c * z * z
+        + d * x * y + e * x * z + f * y * z
+        + g * x + h * y + i * z + j
+    )
 
 
 def quadric_matrix(coeffs: torch.Tensor) -> torch.Tensor:
@@ -247,3 +260,71 @@ def rotate_points_about(points: torch.Tensor, pivot: torch.Tensor,
     """Rotate points (3, N) about ``pivot`` with :func:`rotate_vectors_yz`."""
     c = pivot.reshape(3, 1)
     return rotate_vectors_yz(points - c, theta_y, theta_z) + c
+
+
+def tangent(coeffs: torch.Tensor, rays: torch.Tensor,
+            points: torch.Tensor) -> torch.Tensor:
+    """In-surface tangent: the ray minus its normal component."""
+    N = surface_normal(coeffs, points)
+    dot = torch.sum(rays * N, dim=0)
+    return normalize(rays - dot * N)
+
+
+def curvature(coeffs: torch.Tensor, rays: torch.Tensor,
+              points: torch.Tensor) -> torch.Tensor:
+    """The quadric's Hessian as a quadratic form along the tangent,
+    ``v^T H v`` (N,)."""
+    a, b, c, d, e, f = coeffs[:6].unbind(-1)
+    H = torch.stack([torch.stack([2 * a, d, e]), torch.stack([d, 2 * b, f]),
+                     torch.stack([e, f, 2 * c])])
+    v = tangent(coeffs, rays, points)
+    return torch.einsum("iN,ij,jN->N", v, H, v)
+
+
+def rotate_points(points: torch.Tensor, R: torch.Tensor,
+                  center: torch.Tensor | None = None) -> torch.Tensor:
+    """Rotate a point batch (3, N) by ``R`` about ``center``."""
+    if center is None:
+        return R @ points
+    c = center.reshape(3, 1)
+    return R @ (points - c) + c
+
+
+def _point_rotate(points, theta, center, axis):
+    theta = torch.as_tensor(theta, dtype=points.dtype, device=points.device)
+    center = torch.as_tensor(center, dtype=points.dtype, device=points.device)
+    return rotate_points(points, rodrigues(_t(axis, points), -theta), center)
+
+
+def point_rotate_x(points, theta, center):
+    """Rotate points about the x axis through ``center`` by ``-theta`` (the
+    reference's sign convention)."""
+    return _point_rotate(points, theta, center, (1.0, 0.0, 0.0))
+
+
+def point_rotate_y(points, theta, center):
+    """Rotate points about the y axis through ``center`` by ``-theta``."""
+    return _point_rotate(points, theta, center, (0.0, 1.0, 0.0))
+
+
+def point_rotate_z(points, theta, center):
+    """Rotate points about the z axis through ``center`` by ``-theta``."""
+    return _point_rotate(points, theta, center, (0.0, 0.0, 1.0))
+
+
+def grid_on_mirror(coeffs: torch.Tensor, corners: torch.Tensor,
+                   n_h: int, n_v: int) -> torch.Tensor:
+    """Bilinear (n_v, n_h) grid between 4 corner points (3, 4), projected
+    onto the quadric along -x; returns (3, n_v * n_h)."""
+    p1, p2, p3, p4 = corners.T
+    u = linspace(0.0, 1.0, n_h, like=corners)
+    v = linspace(0.0, 1.0, n_v, like=corners)
+    vv, uu = torch.meshgrid(v, u, indexing="ij")  # (n_v, n_h)
+    w = (
+        (1 - uu) * (1 - vv) * p1[:, None, None]
+        + uu * (1 - vv) * p2[:, None, None]
+        + uu * vv * p3[:, None, None]
+        + (1 - uu) * vv * p4[:, None, None]
+    ).reshape(3, -1)
+    ray = _t((-1.0, 0.0, 0.0), corners)[:, None].expand(w.shape)
+    return intersect(coeffs, ray, w)[0]

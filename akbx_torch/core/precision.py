@@ -184,3 +184,34 @@ def sum_segments(segments) -> torch.Tensor:
     for s in segments[1:]:
         acc = df_add_f(acc, s)
     return df_to_float(acc)
+
+
+def dot3_df(ax, ay, az, bx, by, bz) -> DF:
+    """Error-compensated 3-vector dot product."""
+    s = df_add(two_prod(ax, bx), two_prod(ay, by))
+    return df_add(s, two_prod(az, bz))
+
+
+def norm3_df(x, y, z) -> DF:
+    """Error-compensated Euclidean norm of a 3-vector."""
+    return df_sqrt(dot3_df(x, y, z, x, y, z))
+
+
+def kahan_sum(terms: torch.Tensor, axis=None):
+    """Compensated sum of every element of ``terms`` (a short list of
+    segment lengths, folded with ``two_sum``).  Per-ray sums take
+    :func:`sum_segments`."""
+    if axis is not None:
+        raise NotImplementedError("use sum_segments for per-ray segment sums")
+    flat = terms.reshape(-1)
+    acc = df_from(flat[0])
+    for k in range(1, flat.shape[0]):
+        acc = df_add_f(acc, flat[k])
+    return df_to_float(acc)
+
+
+def stable_sqrt_diff(d2: torch.Tensor, r_ref: torch.Tensor) -> torch.Tensor:
+    """Cancellation-free ``sqrt(d2) - r_ref`` given ``r_ref ~ sqrt(d2)``:
+    ``(d2 - r_ref^2) / (sqrt(d2) + r_ref)``."""
+    r = torch.sqrt(d2)
+    return (d2 - r_ref * r_ref) / (r + r_ref)

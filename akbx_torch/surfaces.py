@@ -141,3 +141,11 @@ def intersect_and_reflect(mirror: Mirror, rays: torch.Tensor,
         seg = torch.abs(t + piston * torch.sum(n * rays, dim=0))
     refl = geo.reflect(rays, n, renormalize=False)
     return pts, refl, n, seg, valid
+
+
+def branch_sign(negative: bool, device=None) -> torch.Tensor:
+    """The root-branch selector of :func:`geo.intersect` as an f64 scalar:
+    -1 for the reference's ``negative=True``, else +1.  On ``device``,
+    else on the card."""
+    return torch.tensor(-1.0 if negative else 1.0, dtype=F64,
+                        device=device_of(None, device))

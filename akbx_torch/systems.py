@@ -487,11 +487,11 @@ class KBSpec:
 
     @staticmethod
     def from_ellipse_na(ell1, ell2) -> "KBSpec":
-        """From two NA-based ellipse designs (mirror-width-center input
+        """From two NA-based ellipse designs
+        (:class:`akbx_torch.design.EllipseNA`, mirror-width-center input
         angle).  Reads only the attributes ``a``, ``b``,
         ``theta_i_cnt_m_wid``, ``x_1``, ``y_1``, ``edge`` and ``y_2`` of
-        each, so any object that has them will do (akbx's ``EllipseNA``
-        is not ported yet)."""
+        each."""
         return KBSpec(
             a_v=float(ell1.a), b_v=float(ell1.b),
             a_h=float(ell2.a), b_h=float(ell2.b),

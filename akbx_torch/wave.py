@@ -4,7 +4,7 @@ Per stage, the O(N_target * N_source) sum
 
     u[i] = sum_j u_src[j] * ds[j] * exp(-i k r_ij) / r_ij
 
-runs two ways:
+runs three ways:
 
 * **K3** (``backend="auto"`` or ``"pallas"``): the df32 contraction of
   :mod:`akbx_torch.kernels.huygens`, a CUDA kernel on the card and its
@@ -15,6 +15,8 @@ runs two ways:
   instead of storing the N x M distance matrix; phases are range-reduced
   mod 2pi in double-word arithmetic (:func:`akbx_torch.core.trig.
   sincos_reduced`).
+* **native** (``backend="native"``): akbx's C++/OpenMP engine in exact
+  f64 on the host (:mod:`akbx_torch.native`), not differentiable.
 
 Fields carry explicit f64 (re, im) pairs; each stage's geometry is
 re-centred on its joint centroid before the distances.  Stage caching
@@ -206,6 +208,24 @@ class _PropagatePallasDD(torch.autograd.Function):
                 None)
 
 
+def _propagate_native(source: WaveField, target_points: torch.Tensor,
+                      wavelength: float):
+    """The native host engine on f64 copies of the inputs; the weights are
+    ``re * ds`` and ``im * ds``, as akbx passes them."""
+    from akbx_torch import native
+
+    inputs = (source.points, source.re, source.im, source.ds, target_points)
+    if any(isinstance(x, torch.Tensor) and x.requires_grad for x in inputs):
+        raise RuntimeError("backend='native' is not differentiable: an input "
+                           "requires grad (use 'xla' or 'pallas')")
+    k = 2.0 * math.pi / wavelength
+    re, im = native.huygens_propagate(target_points, source.points,
+                                      source.re * source.ds,
+                                      source.im * source.ds, k)
+    dev = source.points.device
+    return re.to(dev), im.to(dev)
+
+
 def propagate(source: WaveField, target_points: torch.Tensor,
               wavelength: float, chunk: int = 2048,
               use_pallas: bool | None = None, backend: str = "auto"):
@@ -213,14 +233,15 @@ def propagate(source: WaveField, target_points: torch.Tensor,
 
     ``backend``: ``"auto"`` and ``"pallas"`` run K3 (the CUDA kernel on a
     CUDA tensor, its twin on a CPU tensor); ``"xla"`` runs the exact f64
-    path in target chunks of ``chunk``.  ``use_pallas`` is the legacy
-    boolean form.  Both are differentiable.  A kernel that fails to build
-    or launch raises; nothing falls back.
+    path in target chunks of ``chunk``; ``"native"`` runs akbx's C++/OpenMP
+    host engine (:mod:`akbx_torch.native`) on copies of the inputs on the
+    host, and returns on the source's device.  ``use_pallas`` is the legacy
+    boolean form.  K3 and the f64 path are differentiable; the native
+    engine raises on an input that requires grad.  A kernel or library that
+    fails to build or launch raises; nothing falls back.
     """
     if backend == "native":
-        raise NotImplementedError(
-            "backend='native' (the C++/OpenMP host engine) is not ported "
-            "yet (ROADMAP Queue 1, item 11)")
+        return _propagate_native(source, target_points, float(wavelength))
     if backend not in ("auto", "pallas", "xla"):
         raise ValueError(f"unknown backend {backend!r}")
     if use_pallas is None:

@@ -75,6 +75,24 @@ Phases, one printed line or more each:
         (detcenter 1e-8 m, wave2 0.5 nm, trace_df points 2e-9 m), its time
         and peak memory;
      and cli trace --system kb|tandem|alternating at its default fan.
+ 14. the design and fabrication path (no kernel: K1-K3 launch 0 times):
+     a. cli design-kb and design-na on the card against the same on the
+        CPU (1e-12; design-na's Newton root to 2e-3, its conditioning, and
+        akbx's bars); the NA design's implicit gradient against the exact
+        derivative; design_kb (EllipseNA on the card, scipy's DE on the
+        host) against the CPU's, and its DE from the CPU's inputs;
+     b. cli sweep-kb --num 5 --rays 257 with the milliseconds of each
+        design point's stages (design, autofocus, trace, wavefront,
+        Legendre, artifacts), its artifacts read back; the sweep at 33
+        rays on the card against the host's CPU (PV to 1e-6: the
+        re-fan's rounding, ROADMAP F4);
+     c. cli fab-profiles at --num 100000 (7 finite CSVs, as the CPU's);
+        the traced-versus-analytic loop on WOLTER_3_1_DEFAULT's hyp_v at
+        33 x 2049 (1e-9 m on the conic, 1e-6 mm side profile); quadric_eval,
+        stable_sqrt_diff and kahan_sum on card tensors;
+     d. one 129^2 -> 129^2 wave stage: backend="native" (akbx's C++/OpenMP
+        host engine, built at first use) against the f64 path (3e-7 of the
+        field), timed beside K3.
 Then a JSON line of the kernels, each with its bound (K1 and K2 also
 at two mirrors, on KB's fan, and their launches on each path of 13): the larger of its
 bytes over 3.35e12 B/s and its f32 operations over 3.35e13 op/s (the H100
@@ -88,6 +106,7 @@ last line
 
 import contextlib
 import dataclasses
+import inspect
 import json
 import os
 import re
@@ -1367,6 +1386,461 @@ def phase13(dev, vec, base, tk, hk):
     return launches, times
 
 
+# --- phase 14: the design and fabrication path ------------------------------
+NA_REL = 2e-3           # design-na card vs CPU: the root's conditioning
+DESIGN_REL = 1e-9       # design_kb across devices when its DE inputs differ
+# d l_o2 / d (na_o, x_3) of the exact NA design at cli design-na's defaults
+# (50 digits; tests/test_torch_design.py::test_solve_na_constrained_gradient
+# computes and holds them)
+EXACT_DLO2 = (0.762520721630886, 1.0242128033621023)
+SWEEP_RAYS = 257        # cli sweep-kb on the card: cli trace's fan
+SWEEP_CPU_RAYS = 33     # the sweep on the card and on the host's CPU
+# PV card vs CPU: the f64 engine's re-fan amplifies the two devices'
+# rounding (ROADMAP F4) as it does the two packages' (the port's re-fan
+# parity bar against akbx, tests/test_torch_systems_variants.py)
+SWEEP_PV_REL = 1e-6
+FAB_FAN = (33, 2049)    # the traced hyp_v cloud: across x along the mirror
+NATIVE_SIDE = 129       # [14d]: a 129^2 -> 129^2 wave stage
+NATIVE_REL = 3e-7       # native vs the f64 path, akbx's bar (test_native.py)
+
+
+def run_cli(argv):
+    """(JSON line, host seconds, synchronised) of one port CLI call."""
+    import contextlib
+    import io as _io
+
+    from akbx_torch import cli
+
+    buf = _io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    check(rc == 0, f"cli {argv[0]} returned {rc}")
+    return (json.loads(buf.getvalue().strip().splitlines()[-1]),
+            time.perf_counter() - t0)
+
+
+def rel_diff(a, b):
+    a, b = float(a), float(b)
+    return abs(a - b) / abs(b) if b else abs(a - b)
+
+
+class StageClock:
+    """Host-clock milliseconds of named calls, each between two
+    synchronisations, counting only the outermost of nested calls (the
+    traces inside auto_focus belong to the autofocus stage)."""
+
+    def __init__(self):
+        self.ms = {}
+        self.depth = 0
+        self._undo = []
+
+    def wrap(self, owner, name, stage):
+        raw = inspect.getattr_static(owner, name)
+        fn = getattr(owner, name)
+
+        def timed(*args, **kw):
+            if self.depth:
+                return fn(*args, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self.depth += 1
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.depth -= 1
+                torch.cuda.synchronize()
+                self.ms[stage] = (self.ms.get(stage, 0.0)
+                                  + (time.perf_counter() - t0) * 1e3)
+
+        setattr(owner, name, staticmethod(timed)
+                if isinstance(raw, staticmethod) else timed)
+        self._undo.append((owner, name, raw))
+
+    def restore(self):
+        for owner, name, raw in reversed(self._undo):
+            setattr(owner, name, raw)
+        self._undo.clear()
+
+
+def phase14a_design(dev, base):
+    """cli design-kb and design-na, design_kb (EllipseNA + DE) and the
+    NA design's implicit gradient, on the card against the CPU."""
+    from akbx_torch import design, design_na
+
+    cpu = torch.device("cpu")
+    sides = (("card", dev), ("cpu", cpu))
+    outs = {}
+    for label, d in sides:
+        outs[label] = run_cli(["design-kb", "--out",
+                               os.path.join(base, f"dk_{label}"),
+                               "--device", str(d)])
+    (kb_card, s_card), (kb_cpu, s_cpu) = outs["card"], outs["cpu"]
+    worst = max(rel_diff(kb_card[k], kb_cpu[k]) for k in ("na_h", "na_v",
+                                                          "gap"))
+    files = [[float(ln.split(":")[1]) for ln in open(o["kb_design"])]
+             for o in (kb_card, kb_cpu)]
+    worst = max([worst] + [rel_diff(a, b) for a, b in zip(*files)])
+    print(f"[14a] cli design-kb: card {s_card * 1e3:.3f} ms, CPU "
+          f"{s_cpu * 1e3:.3f} ms (host clock); {kb_card['na_h']:.15g} NA_h, "
+          f"{kb_card['gap']:.15g} m gap; kb_design.txt and JSON card vs CPU "
+          f"max rel {worst:.3e} (bar 1e-12)", flush=True)
+    check(worst <= 1e-12, "cli design-kb: card vs CPU beyond 1e-12")
+
+    # the first call on the card also loads the CUDA solver libraries
+    cold = run_cli(["design-na", "--device", str(dev)])[1]
+    for label, d in sides:
+        outs[label] = run_cli(["design-na", "--device", str(d)])
+    (na_card, s_card), (na_cpu, s_cpu) = outs["card"], outs["cpu"]
+    fields = [k for k in na_cpu if not k.startswith("check_")
+              and k != "iterations"]
+    worst = max(rel_diff(na_card[k], na_cpu[k]) for k in fields)
+    same = sum(na_card[k] == na_cpu[k] for k in na_cpu)
+    print(f"[14a] cli design-na: card {s_card * 1e3:.3f} ms (first call "
+          f"{cold * 1e3:.3f} ms; {na_card['iterations']} Newton steps, one "
+          "host read each), "
+          f"CPU {s_cpu * 1e3:.3f} ms ({na_cpu['iterations']}); fields card "
+          f"vs CPU max rel {worst:.3e} (bar {NA_REL}, the root's "
+          f"conditioning), {same} of {len(na_cpu)} bit-identical; checks "
+          f"card a {na_card['check_a_error']:.3e}, na_i "
+          f"{na_card['check_na_i_error']:.3e}, x_3 "
+          f"{na_card['check_x_3_error']:.3e}", flush=True)
+    for o in (na_card, na_cpu):
+        check(abs(o["check_a_error"]) < 1e-10
+              and abs(o["check_na_i_error"]) < 1e-7
+              and abs(o["check_x_3_error"]) < 1e-4 and o["iterations"] < 50,
+              "cli design-na misses akbx's bars")
+    check(worst <= NA_REL, f"cli design-na: card vs CPU beyond {NA_REL}")
+
+    # the IFT gradient of l_o2 in (na_o, x_3)
+    grads = {}
+    for label, d in sides:
+        v = torch.tensor([0.02, 0.55], dtype=torch.float64, device=d,
+                         requires_grad=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sol = design_na.solve_na_constrained(146.0, v[1], 1e-4, v[0])
+        g, = torch.autograd.grad(sol.l_o2, v)
+        grads[label] = (g.cpu().numpy(), time.perf_counter() - t0)
+    g_card, t_card = grads["card"]
+    g_cpu, t_cpu = grads["cpu"]
+    e_exact = np.abs(g_card - EXACT_DLO2) / np.abs(EXACT_DLO2)
+    e_cpu = np.abs(g_card - g_cpu) / np.abs(g_cpu)
+
+    def l_o2(na_o, x_3):
+        return float(design_na.solve_na_constrained(146.0, x_3, 1e-4, na_o,
+                                                    device=dev).l_o2)
+
+    fd = []
+    for h in (1e-4, 1e-2):
+        fd.append(((l_o2(0.02 * (1 + h), 0.55) - l_o2(0.02 * (1 - h), 0.55))
+                   / (0.04 * h),
+                   (l_o2(0.02, 0.55 * (1 + h)) - l_o2(0.02, 0.55 * (1 - h)))
+                   / (1.1 * h)))
+    e_fd = [np.abs(g_card - f) / np.abs(g_card) for f in fd]
+    print(f"[14a] solve_na_constrained + IFT backward: card {t_card * 1e3:.3f}"
+          f" ms, CPU {t_cpu * 1e3:.3f} ms (host clock); d l_o2/d(na_o, x_3) "
+          f"card {g_card.tolist()}, vs the exact derivative "
+          f"{e_exact.tolist()} (bar 1e-2), vs the CPU's {e_cpu.tolist()} "
+          f"(bar 1e-2); central differences (relative step 1e-4: "
+          f"{e_fd[0].tolist()}, 1e-2: {e_fd[1].tolist()}) resolve the root's "
+          "rounding noise, not the derivative", flush=True)
+    check(e_exact.max() <= 1e-2 and e_cpu.max() <= 1e-2,
+          "the NA design's implicit gradient is off the exact derivative")
+
+    # design_kb: EllipseNA on the device, the DE on the host
+    case = (145.75, 1.05, 0.21, 0.0082, 0.0082, 0.32, 0.2287, 0.0)
+    pairs, xs = {}, {}
+    import scipy.optimize as so
+
+    de = so.differential_evolution
+
+    def record(*a, **kw):
+        r = de(*a, **kw)
+        xs[current] = r
+        return r
+
+    so.differential_evolution = record
+    try:
+        for current, d in sides:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pairs[current] = (design.design_kb(*case, seed=0, device=d),
+                              time.perf_counter() - t0)
+        # the card's DE from the CPU's V mirror: the same inputs
+        v_cpu = pairs["cpu"][0][0]
+        current = "same"
+        design.design_ell_h(type("V", (), {
+            k: getattr(v_cpu, k).to(dev) for k in ("edge", "f", "l_i2",
+                                                   "theta_g1", "l_o2",
+                                                   "l_i1")})(),
+            0.32, 0.2287, 0.0, 0.0082, seed=0)
+    finally:
+        so.differential_evolution = de
+    (v_card, h_card), t_card = pairs["card"]
+    (v_cpu, h_cpu), t_cpu = pairs["cpu"]
+    inputs = ("edge", "f", "l_i2", "theta_g1", "l_o2")
+    ulps = {k: int(abs(np.float64(float(getattr(v_card, k))).view(np.int64)
+                       - np.float64(float(getattr(v_cpu, k))).view(np.int64)))
+            for k in inputs}
+    same_inputs = not any(ulps.values())
+    x_same = np.array_equal(xs["card"].x, xs["cpu"].x)
+    bar = 1e-12 if same_inputs else DESIGN_REL
+    worst = max(rel_diff(getattr(h_card, k), getattr(h_cpu, k))
+                for k in ("l_o2", "x_1", "f"))
+    print(f"[14a] design_kb (DE, seed 0, de_maxiter 10000): card "
+          f"{t_card:.3f} s, CPU {t_cpu:.3f} s (host clock; "
+          f"{xs['card'].nfev} objective calls); the DE's inputs from the V "
+          f"mirror, card vs CPU in ulps {ulps}; DE x card {xs['card'].x.tolist()}"
+          f" CPU {xs['cpu'].x.tolist()} (identical {x_same}); from the CPU's"
+          f" inputs the card's DE x identical "
+          f"{np.array_equal(xs['same'].x, xs['cpu'].x)}; H mirror l_o2, x_1,"
+          f" f card vs CPU max rel {worst:.3e} (bar {bar})", flush=True)
+    check(np.array_equal(xs["same"].x, xs["cpu"].x),
+          "the DE differs from the same inputs")
+    check(x_same or not same_inputs, "design_kb's DE x differs")
+    check(worst <= bar, f"design_kb card vs CPU beyond {bar}")
+
+
+def phase14b_sweep(dev, base, tk, hk):
+    """cli sweep-kb at 5 designs and SWEEP_RAYS on the card, its stages
+    and launches; the same sweep at SWEEP_CPU_RAYS on the card and on the
+    host's CPU; the artifacts read back."""
+    from akbx_torch import align, design, systems, tooling, trace, wavefront
+    from akbx_torch.analysis import legendre, rectify
+
+    clock = StageClock()
+    for owner, name, stage in (
+            (design, "kb_define", "design"),
+            (systems.KBSpec, "from_kb_define", "design"),
+            (align, "auto_focus", "autofocus"),
+            (systems, "build_kb", "trace"), (trace, "run", "trace"),
+            (wavefront, "wavefront_grid", "wavefront"),
+            (wavefront, "pv_6sigma", "wavefront"),
+            (rectify, "extract_square_region", "Legendre"),
+            (legendre, "match_multi", "Legendre"),
+            (legendre, "mode_pvs", "Legendre"),
+            (legendre, "fit_sum", "Legendre"),
+            (tooling, "write_sweep_artifacts", "artifacts"),
+            (tooling, "write_kb_design", "artifacts")):
+        clock.wrap(owner, name, stage)
+    num = 5
+    try:
+        out, secs = run_cli(["sweep-kb", "--num", str(num), "--rays",
+                             str(SWEEP_RAYS), "--out",
+                             os.path.join(base, "sweep"), "--device",
+                             str(dev)])
+    finally:
+        clock.restore()
+    launched = counts(tk, hk)
+    per_point = {k: v / num for k, v in clock.ms.items()}
+    print(f"[14b] cli sweep-kb --num {num} --rays {SWEEP_RAYS}: {secs:.3f} s "
+          f"host clock; NA {out['na']}, PV {out['pv']} waves, r2 "
+          f"{out['r2']}; ms per design point (host clock, synchronised): "
+          + "; ".join(f"{k} {v:.3f}" for k, v in per_point.items())
+          + f"; launches {launched}", flush=True)
+    check(launched == {"K1": 0, "K2": 0, "K3": 0},
+          f"the sweep (the f64 engine) launched {launched}")
+    check(out["r2"] is not None and np.isfinite(out["r2"])
+          and np.all(np.isfinite(out["pv"])), "sweep-kb: non-finite output")
+    data = tooling.collect_sweep(os.path.join(base, "sweep"), pv_index=-1)
+    check(np.array_equal(data["NA_h"], out["na"])
+          and np.array_equal(data["pv"], out["pv"])
+          and len(data["folder"]) == num,
+          "the sweep's artifacts do not read back")
+    ips = [np.loadtxt(os.path.join(f, "inner_products.csv"), delimiter=",")
+           for f in data["folder"]]
+    n_modes = len(legendre.triangular_orders(5))
+    check(all(np.all(np.isfinite(x)) and x.size == n_modes for x in ips),
+          "the sweep's inner products")
+
+    values = np.linspace(145.0, 147.0, num)
+    six = (0.21, 0.16742, 0.180, 0.030, 0.15525, 0.05)
+    runs = {}
+    for label, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[label] = (tooling.kb_design_sweep(
+            values, six, os.path.join(base, f"sweep_{label}"),
+            n_rays=SWEEP_CPU_RAYS, device=d), time.perf_counter() - t0)
+    (card, t_card), (cpu, t_cpu) = runs["card"], runs["cpu"]
+    e_na = max(rel_diff(a, b) for a, b in zip(card["na"], cpu["na"]))
+    e_pv = [rel_diff(a, b) for a, b in zip(card["pv"], cpu["pv"])]
+    print(f"[14b] sweep at {SWEEP_CPU_RAYS} rays: card {t_card:.3f} s, the "
+          f"host's CPU {t_cpu:.3f} s; NA card vs CPU max rel {e_na:.3e}; PV "
+          f"card {card['pv'].tolist()} vs CPU: rel {e_pv} (bar "
+          f"{SWEEP_PV_REL})", flush=True)
+    check(e_na <= 1e-12, "sweep NA card vs CPU")
+    check(max(e_pv) <= SWEEP_PV_REL,
+          f"sweep PV card vs CPU beyond {SWEEP_PV_REL}")
+
+
+def phase14c_fab(dev, base):
+    """cli fab-profiles at its default length, the traced-versus-analytic
+    loop on the card, and the core helpers on card tensors."""
+    from akbx_torch import fab, trace
+    from akbx_torch.core import geometry as geo
+    from akbx_torch.core import precision as pr
+    from akbx_torch.systems import (AlignParams, WOLTER_3_1_DEFAULT,
+                                    build_wolter_3_1)
+
+    out_dir = os.path.join(base, "fab")
+    out, secs = run_cli(["fab-profiles", "--out", out_dir, "--device",
+                         str(dev)])
+    cpu_out, cpu_secs = run_cli(["fab-profiles", "--out", out_dir + "_cpu",
+                                 "--device", "cpu"])
+    files = sorted(os.listdir(out_dir))
+    rows = {}
+    for f in files:
+        a = np.loadtxt(os.path.join(out_dir, f), delimiter=",", skiprows=1)
+        b = np.loadtxt(os.path.join(out_dir + "_cpu", f), delimiter=",",
+                       skiprows=1)
+        check(a.ndim == 2 and a.shape[0] > 10 and np.all(np.isfinite(a)),
+              f"fab-profiles wrote a bad {f}")
+        # the CSVs print 1e-6 mm: an ulp of a mirror centre may flip a digit
+        check(a.shape == b.shape and np.abs(a - b).max() <= 1.5e-6,
+              f"fab-profiles {f}: card vs CPU")
+        rows[f] = a.shape[0]
+    e_rot = max(rel_diff(out[k]["rotation_deg"], cpu_out[k]["rotation_deg"])
+                for k in out)
+    print(f"[14c] cli fab-profiles --num 100000: {secs:.3f} s (CPU run "
+          f"{cpu_secs:.3f} s), host clock; {len(files)} CSVs, rows {rows}, "
+          f"within 1.5e-6 mm of the CPU run's; rotations "
+          f"{ {k: v['rotation_deg'] for k, v in out.items()} } deg, card vs "
+          f"CPU max rel {e_rot:.3e}", flush=True)
+    check(len(files) == 7, f"fab-profiles wrote {len(files)} files")
+
+    spec = WOLTER_3_1_DEFAULT
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sys_ = build_wolter_3_1(spec, AlignParams.zeros(dev))
+    res = trace.run(sys_, *FAB_FAN, defocus=0.0, exit_pupil_uniform=False,
+                    tilt_correction=False)
+    cloud, coeffs = res.trace.points[0], sys_.mirrors[0].coeffs
+    torch.cuda.synchronize()
+    t_trace = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x_c, r = fab.canonical_conic_profile(cloud, coeffs)
+    y_ana = fab.hyperbola_profile(spec.a_hyp_v, spec.b_hyp_v, 0.0, x_c)
+    e_conic = float(np.abs(r - y_ana).max())
+    order = np.argsort(x_c)
+    x_c, r = x_c[order], r[order]
+    prof = fab.sideview_profile(np.stack([x_c, 0 * x_c, r]))
+    ana = fab.machining_profile(
+        lambda x: fab.hyperbola_profile(spec.a_hyp_v, spec.b_hyp_v, 0.0, x),
+        float(x_c.min() + x_c.max()) / 2, float(x_c.max() - x_c.min()),
+        num=8000, pre_margin=(0.005, 0.02))
+    x_a = ana["x_raw"] - np.min(ana["x_raw"])
+    y_a = ana["y_raw"] - np.min(ana["y_raw"])
+    x_t, y_t = prof[0] * 1e3, prof[1] * 1e3
+    y_at = np.interp(x_t, x_a * 1e3, y_a * 1e3)
+    dev_mm = y_t - (y_at - y_at.max() + y_t.max())
+    dev_mm -= np.polyval(np.polyfit(x_t, dev_mm, 1), x_t)
+    e_side = float(np.abs(dev_mm).max())
+    resid = fab.compare_profiles(x_t, y_t, x_a * 1e3, y_a * 1e3, dx=0.05)[3]
+    e_cmp = float(np.abs(resid).max())
+    t_loop = time.perf_counter() - t0
+    n_pts = cloud.shape[1]
+    print(f"[14c] traced hyp_v cloud, {FAB_FAN[0]} x {FAB_FAN[1]} = {n_pts} "
+          f"points on the f64 engine: build + trace {t_trace * 1e3:.3f} ms, "
+          f"the host's loop {t_loop * 1e3:.3f} ms; |r - y_ana| "
+          f"{e_conic:.3e} m (bar 1e-9), side profile after detrend "
+          f"{e_side:.3e} mm (bar 1e-6), compare_profiles {e_cmp:.3e} mm "
+          "(bar 2e-4)", flush=True)
+    check(e_conic <= 1e-9 and e_side <= 1e-6 and e_cmp <= 2e-4,
+          "the traced cloud misses the analytic profile")
+
+    # core helpers on card tensors, against the same calls on the CPU
+    s_card = geo.quadric_eval(coeffs, cloud)
+    s_cpu = geo.quadric_eval(coeffs.cpu(), cloud.cpu())
+    e_s = float(s_card.abs().max())
+    e_s_cpu = float((s_card.cpu() - s_cpu).abs().max())
+    rng = np.random.default_rng(SEED + 14)
+    # a path near r_ref with a relative change eps of 1e-12 to 1e-11:
+    # sqrt(d2) - r_ref = r_ref eps / 2 to 1e-11 of itself, and d2's three
+    # roundings move it by up to ~4e-4 (akbx's bar, 1e-3)
+    r_ref = torch.tensor(rng.uniform(70.0, 150.0, 1 << 20),
+                         dtype=torch.float64, device=dev)
+    eps = torch.tensor(rng.choice([-1.0, 1.0], 1 << 20)
+                       * 10.0 ** rng.uniform(-12.0, -11.0, 1 << 20),
+                       dtype=torch.float64, device=dev)
+    d2 = r_ref ** 2 * (1 + eps)
+    sd = pr.stable_sqrt_diff(d2, r_ref)
+    sd_cpu = pr.stable_sqrt_diff(d2.cpu(), r_ref.cpu())
+    want = r_ref * eps / 2
+    e_sd = float(((sd - want).abs() / want.abs()).max())
+    e_sd_cpu = float((sd.cpu() - sd_cpu).abs().max() / sd_cpu.abs().max())
+    legs = torch.tensor(np.append(rng.uniform(1.0, 100.0, 4), 1e-10),
+                        dtype=torch.float64)
+    k_card = float(pr.kahan_sum(legs.to(dev)))
+    k_cpu = float(pr.kahan_sum(legs))
+    print(f"[14c] core on the card: quadric_eval of the cloud max |S| "
+          f"{e_s:.3e} (bar 1e-9), card vs CPU {e_s_cpu:.3e}; "
+          f"stable_sqrt_diff on {d2.numel()} values vs r eps / 2 max rel "
+          f"{e_sd:.3e} (bar 1e-3), card vs CPU {e_sd_cpu:.3e}; kahan_sum "
+          f"card {k_card!r} CPU {k_cpu!r}", flush=True)
+    check(e_s <= 1e-9 and e_s_cpu <= 1e-9, "quadric_eval of the cloud")
+    check(e_sd <= 1e-3 and e_sd_cpu <= 1e-15, "stable_sqrt_diff")
+    check(k_card == k_cpu, "kahan_sum card vs CPU")
+
+
+def phase14d_native(dev, hk):
+    """One NATIVE_SIDE^2 -> NATIVE_SIDE^2 stage: the native host engine
+    against the f64 path on the card, beside K3."""
+    from akbx_torch import native, wave
+
+    n = NATIVE_SIDE ** 2
+    src, tgt = huygens_cloud(dev, n, n, SEED + 14)
+    t0 = time.perf_counter()
+    native.load()
+    build_s = time.perf_counter() - t0
+    nat_s, nat = [], None
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nat = wave.propagate(src, tgt, EUV, backend="native")
+        torch.cuda.synchronize()
+        nat_s.append(time.perf_counter() - t0)
+    check(nat[0].device == tgt.device, "native's result is not on the card")
+    xla = wave.propagate(src, tgt, EUV, backend="xla")
+    k3 = wave.propagate(src, tgt, EUV, backend="pallas")
+    err, rel = field_err(nat, xla)
+    k3_err, k3_rel = field_err(k3, xla)
+    xla_ms = time_ms(lambda: wave.propagate(src, tgt, EUV, backend="xla"),
+                     reps=3, warmup=1)
+    k3_ms = time_ms(lambda: wave.propagate(src, tgt, EUV, backend="pallas"),
+                    reps=REPS, warmup=2)
+    pairs = n * n
+    nat_ms = min(nat_s) * 1e3
+    print(f"[14d] {n} x {n} = {pairs} pairs at 13.5 nm: native (g++ -O3 "
+          f"-march=native -fopenmp, built in {build_s:.2f} s, "
+          f"{native.num_threads()} threads) {nat_ms:.3f} ms host clock "
+          f"(best of 2, copies included; {pairs / (nat_ms / 1e3):.4e} "
+          f"pairs/s); the f64 path on the card {xla_ms:.3f} ms; K3 "
+          f"{k3_ms:.3f} ms (CUDA events, median of {REPS}; "
+          f"{pairs / (k3_ms / 1e3):.4e} pairs/s); native vs f64 max |err| "
+          f"{err:.3e}, of the field {rel:.3e} (bar {NATIVE_REL}); K3 vs f64 "
+          f"{k3_rel:.3e} (bar {FIELD_REL})", flush=True)
+    check(rel <= NATIVE_REL, "native disagrees with the f64 path")
+    check(k3_rel <= FIELD_REL, "K3 disagrees with the f64 path")
+
+
+def phase14(dev, base, tk, hk):
+    """The design and fabrication path on the card; returns its launches
+    of K1-K3 (all 0: design, the sweep's f64 engine and fab run none)."""
+    reset_counts(tk, hk)
+    phase14a_design(dev, base)
+    phase14b_sweep(dev, base, tk, hk)
+    phase14c_fab(dev, base)
+    launched = counts(tk, hk)
+    check(launched == {"K1": 0, "K2": 0, "K3": 0},
+          f"design and fab launched {launched}")
+    phase14d_native(dev, hk)
+    return launched
+
+
 def main():
     t_start = time.perf_counter()
     # --- 1. the card -----------------------------------------------------
@@ -1626,6 +2100,12 @@ def main():
         print(f"[13] phase 13 took {time.perf_counter() - t13:.1f} s",
               flush=True)
 
+        # --- 14. the design and fabrication path ------------------------
+        t14 = time.perf_counter()
+        launches14 = phase14(dev, base, tk, hk)
+        print(f"[14] phase 14 took {time.perf_counter() - t14:.1f} s",
+              flush=True)
+
     kernels = [
         {"name": "K1 trace_deviation (bounce chain)", "route": "cuda",
          "source": "akbx_torch/csrc/trace_kernel.cu",
@@ -1634,7 +2114,8 @@ def main():
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None,
          "n_mirr_2": two_mirror(times13["kb"][0]),
-         "launches_phase_13": {k: v["K1"] for k, v in launches13.items()}},
+         "launches_phase_13": {k: v["K1"] for k, v in launches13.items()},
+         "launches_phase_14": launches14["K1"]},
         {"name": "K2 detector (tilt + detector planes + OPL)",
          "route": "cuda", "source": "akbx_torch/csrc/trace_kernel.cu",
          "replaces": "akbx/kernels/trace_kernel.py:469",
@@ -1642,14 +2123,15 @@ def main():
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound[0],
          "bound_by": k2_bound[1], "library_ms": None,
          "n_mirr_2": two_mirror(times13["kb"][1]),
-         "launches_phase_13": {k: v["K2"] for k, v in launches13.items()}},
+         "launches_phase_13": {k: v["K2"] for k, v in launches13.items()},
+         "launches_phase_14": launches14["K2"]},
         {"name": "K3 huygens (df32 Huygens contraction)", "route": "cuda",
          "source": "akbx_torch/csrc/huygens_kernel.cu",
          "replaces": "akbx/kernels/huygens.py:150",
          "launches": w_launches, "max_abs_err": k3_err, **k3_t,
-         "library_ms": None},
+         "library_ms": None, "launches_phase_14": launches14["K3"]},
     ]
-    print(f"[13] wall time {time.perf_counter() - t_start:.1f} s",
+    print(f"[14] wall time {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -139,6 +139,70 @@ def test_planes_and_rotations(fan):
     _close(tgeo.normalize(_t(pts)), jgeo.normalize(jnp.asarray(pts)))
 
 
+def test_quadric_eval(quadric, fan):
+    """Points of the quadric evaluate to 0 within akbx's bar (1e-9,
+    tests/test_geometry.py); at seeded points off it, the two packages
+    agree to the rounding of the 10-term sum."""
+    d, o = fan
+    pts, _, valid = tgeo.intersect(_t(quadric), _t(d), _t(o))
+    on = tgeo.quadric_eval(_t(quadric), pts)
+    assert bool(valid.all()) and float(on.abs().max()) < 1e-9
+    off = np.random.default_rng(4).normal(0, 1, (3, 50)) * [[50], [1], [1]]
+    _close(tgeo.quadric_eval(_t(quadric), _t(off)),
+           jgeo.quadric_eval(jnp.asarray(quadric), jnp.asarray(off)))
+
+
+def test_tangent_and_curvature(quadric, fan):
+    d, o = fan
+    jp = jgeo.intersect(jnp.asarray(quadric), jnp.asarray(d),
+                        jnp.asarray(o))[0]
+    args_j = (jnp.asarray(quadric), jnp.asarray(d), jp)
+    args_t = (_t(quadric), _t(d), _t(np.asarray(jp)))
+    _close(tgeo.tangent(*args_t), jgeo.tangent(*args_j), 1e-11)
+    _close(tgeo.curvature(*args_t), jgeo.curvature(*args_j), 1e-11)
+
+
+def test_point_rotations(fan):
+    """rotate_points (with and without a centre) and point_rotate_x/y/z,
+    with the reference's -theta convention."""
+    d, o = fan
+    pts = o + 146.0 * d
+    R = np.asarray(jgeo.rodrigues(jnp.asarray([0.3, -1.0, 0.2]), 2e-3))
+    c = np.array([146.0, 1e-3, -2e-3])
+    _close(tgeo.rotate_points(_t(pts), _t(R)),
+           jgeo.rotate_points(jnp.asarray(pts), jnp.asarray(R)))
+    _close(tgeo.rotate_points(_t(pts), _t(R), _t(c)),
+           jgeo.rotate_points(jnp.asarray(pts), jnp.asarray(R),
+                              jnp.asarray(c)))
+    for name in ("point_rotate_x", "point_rotate_y", "point_rotate_z"):
+        _close(getattr(tgeo, name)(_t(pts), 3.1e-3, c),
+               getattr(jgeo, name)(jnp.asarray(pts), 3.1e-3,
+                                   jnp.asarray(c)))
+
+
+def test_grid_on_mirror(quadric):
+    """A 7 x 5 bilinear grid between four corners near the mirror,
+    projected onto it along -x."""
+    corners = np.array([[146.2, 146.3, 146.3, 146.2],
+                        [-1e-3, -1e-3, 1e-3, 1e-3],
+                        [0.02, 0.021, 0.021, 0.02]])
+    t = tgeo.grid_on_mirror(_t(quadric), _t(corners), 7, 5)
+    j = jgeo.grid_on_mirror(jnp.asarray(quadric), jnp.asarray(corners), 7, 5)
+    assert t.shape == (3, 35)
+    _close(t, j)
+    assert float(tgeo.quadric_eval(_t(quadric), t).abs().max()) < 1e-9
+
+
+def test_branch_sign():
+    from akbx.surfaces import branch_sign as jbs
+    from akbx_torch.surfaces import branch_sign as tbs
+
+    for negative in (True, False):
+        t = tbs(negative, device="cpu")
+        assert t.dtype == torch.float64
+        assert float(t) == float(jbs(negative))
+
+
 # --- double-f64 placement ------------------------------------------------
 # The DF chains keep ~32 digits; their f64 views agree to ~1 ulp of the
 # largest coefficient (the last rounding is the only one that may differ).

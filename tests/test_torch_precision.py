@@ -133,6 +133,49 @@ def test_df_add_mul_identical():
         tpr.sum_segments([torch.from_numpy(s) for s in segs]).numpy())
 
 
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_dot3_norm3_df(dt):
+    """The compensated dot product and norm of seeded 3-vectors."""
+    np_dt, _ = DTYPES[dt]
+    a, b = _operands(np_dt, n=6 * 512, seed=5)
+    av, bv = a.reshape(3, -1), b.reshape(3, -1)
+    j = jpr.dot3_df(*map(jnp.asarray, av), *map(jnp.asarray, bv))
+    t = tpr.dot3_df(*map(torch.from_numpy, av), *map(torch.from_numpy, bv))
+    j_hi, j_lo = _host(j)
+    np.testing.assert_array_equal(j_hi, t.hi.numpy())
+    np.testing.assert_array_equal(j_lo, t.lo.numpy())
+    j_hi, j_lo = _host(jpr.norm3_df(*map(jnp.asarray, av)))
+    t = tpr.norm3_df(*map(torch.from_numpy, av))
+    scale = np.abs(j_hi)
+    got = t.hi.numpy().astype(np.float64) + t.lo.numpy()
+    want = j_hi.astype(np.float64) + j_lo
+    # sqrt may round differently in the two libraries before the Newton
+    # step, which restores the double-word value
+    rel = 1e-12 if dt == "f32" else 1e-28
+    assert np.max(np.abs(got - want) / scale) < rel
+
+
+def test_kahan_sum_and_stable_sqrt_diff():
+    """The compensated sum of OPL-like legs, and ``sqrt(d2) - r`` at a 146
+    m path with a 1e-13 relative change (akbx's bar, 1e-3 relative, from
+    tests/test_precision.py; here also the same value as akbx)."""
+    rng = np.random.default_rng(6)
+    legs = rng.uniform(1, 100, 5)
+    legs[0] += 1e-10
+    assert float(tpr.kahan_sum(torch.from_numpy(legs))) == float(
+        jpr.kahan_sum(jnp.asarray(legs)))
+    with pytest.raises(NotImplementedError):
+        tpr.kahan_sum(torch.from_numpy(legs), axis=0)
+    d2 = np.array([146.0**2 * (1 + 1e-13), 73.0**2 * (1 - 3e-12)])
+    r = np.array([146.0, 73.0])
+    t = tpr.stable_sqrt_diff(torch.from_numpy(d2), torch.from_numpy(r))
+    want = r * (np.sqrt(np.array([1 + 1e-13, 1 - 3e-12])) - 1)
+    np.testing.assert_allclose(t.numpy(), want, rtol=1e-3)
+    np.testing.assert_array_equal(
+        t.numpy(), np.asarray(jpr.stable_sqrt_diff(jnp.asarray(d2),
+                                                   jnp.asarray(r))))
+
+
 def test_dispatch_rule():
     """CPU -> twin, CUDA -> kernel, any other device or a mix raises."""
     assert use_kernel(torch.zeros(2), torch.zeros(3)) is False
@@ -143,10 +186,14 @@ def test_dispatch_rule():
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port leaves jax unimported."""
-    code = ("import sys\n"
-            "import akbx_torch, akbx_torch.trace, akbx_torch.convert, "
-            "akbx_torch.kernels._build\n"
+    """Importing every module of the port leaves jax and akbx unimported."""
+    code = ("import importlib, pkgutil, sys\n"
+            "import akbx_torch\n"
+            "names = [m.name for m in pkgutil.walk_packages("
+            "akbx_torch.__path__, 'akbx_torch.')]\n"
+            "for name in names:\n"
+            "    importlib.import_module(name)\n"
+            "assert len(names) >= 30, names\n"
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'akbx.')) or m == 'akbx')\n"
             "print(bad)\n"

@@ -350,7 +350,7 @@ def test_cli_unported_options_raise(cli_runs, tmp_path):
     from akbx import config as jcfg
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.main(["design-kb"])
+        tcli.main(["plot"])
     cfg = str(tmp_path / "wave.json")
     jcfg.save_config(jcfg.WaveConfig(), cfg)
     out = _cli(tcli, "propagate", cli_runs["export"][0]["out_dir"], "--out",
