@@ -52,12 +52,15 @@ def _fftfreq(n: int, d: float, device=None) -> torch.Tensor:
 
 def compute_psf_fft(opd_m, amp, wavelength_m, pupil_dx_m, focal_length_m,
                     pad_factor: int = 2, window: str | None = None,
-                    return_efield: bool = False, pupil_dy_m=None):
+                    return_efield: bool = False, pupil_dy_m=None,
+                    fft2_shifted_fn=None):
     """Fraunhofer PSF from a pupil OPD + amplitude by FFT: NaN masking,
     optional Hann window, even-size pad, centred zero-pad by
     ``pad_factor``, ``fftshift(fft2(ifftshift(U))) * dA``, image
     coordinates ``lambda f fftfreq``, peak normalization.
-    Returns (psf, x_im, y_im[, efield])."""
+    ``fft2_shifted_fn`` replaces the ``fftshift(fft2(ifftshift(.)))``
+    transform (:func:`akbx_torch.parallel.fft.psf_fft_sharded` shards it
+    over a mesh).  Returns (psf, x_im, y_im[, efield])."""
     opd = torch.as_tensor(opd_m, dtype=F64)
     A = torch.as_tensor(amp, dtype=F64, device=opd.device)
     A = torch.where(torch.isfinite(A), A, 0.0)
@@ -81,8 +84,11 @@ def compute_psf_fft(opd_m, amp, wavelength_m, pupil_dx_m, focal_length_m,
 
     dx = pupil_dx_m
     dy = dx if pupil_dy_m is None else pupil_dy_m
-    U_im = torch.fft.fftshift(torch.fft.fft2(torch.fft.ifftshift(big))) \
-        * (dx * dy)
+    if fft2_shifted_fn is None:
+        U_im = torch.fft.fftshift(torch.fft.fft2(torch.fft.ifftshift(big)))
+    else:
+        U_im = fft2_shifted_fn(big)
+    U_im = U_im * (dx * dy)
 
     x_im = wavelength_m * focal_length_m * torch.fft.fftshift(
         _fftfreq(px, dx, opd.device))

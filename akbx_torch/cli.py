@@ -1,5 +1,4 @@
-"""Command-line interface of the port (the workflows of :mod:`akbx.cli`
-ported so far).
+"""Command-line interface of the port (the workflows of :mod:`akbx.cli`).
 
 * ``trace``       — build, autofocus, trace, wavefront map, Legendre
   decomposition and PSF artifacts (``--config`` takes a TraceConfig);
@@ -13,13 +12,15 @@ ported so far).
   wavefront, Legendre and the artifact set of each run, then the PV-vs-NA
   fit;
 * ``fab-profiles`` — machining profile CSVs of the Wolter III+I design;
-* ``design-na``    — NA-constrained ellipse design.
+* ``design-na``    — NA-constrained ellipse design;
+* ``plot``         — the diagnostic figure battery of a trace: spot,
+  virtual source, wavefront, PSF (linear, log, cuts), around-focus;
+* ``gui``          — the tkinter KB design tool.
 
 ``--system`` picks the mirror system: ``akb`` (Wolter III+I), ``kb``
 (akbx's KB7 design), ``tandem`` or ``alternating`` (Wolter III+III).
-akbx's ``plot`` and ``gui`` raise ``NotImplementedError``.  Each command
-prints akbx's JSON summary line and runs on ``--device`` (default
-``cuda``).
+Each command prints akbx's JSON summary line (``gui`` none) and runs on
+``--device`` (default ``cuda``).
 Run ``python -m akbx_torch.cli <cmd> --help``.
 """
 
@@ -361,21 +362,60 @@ def cmd_design_na(args):
     return 0
 
 
-def cmd_unported(args):
-    raise NotImplementedError(
-        f"cli {args.cmd} is not ported yet (ROADMAP Queue 1, item 15)")
+def cmd_plot(args):
+    """Diagnostic figures for a trace run (the reference's savefig
+    battery)."""
+    from akbx_torch import align, plotting, trace, wavefront
+    from akbx_torch.analysis import psf as _psf
+    from akbx_torch.utils import to_numpy
+
+    build, params = _build_fn(args)
+    if args.autofocus:
+        params = align.auto_focus(build, params, n=min(args.rays, 21), iters=5)
+    sys_ = build(params)
+    n = args.rays
+    res = trace.run(sys_, n, n, defocus=params.defocus,
+                    defocus_wave=args.defocus_wave)
+    os.makedirs(args.out, exist_ok=True)
+    made = []
+
+    def out(name):
+        made.append(os.path.join(args.out, name))
+        return made[-1]
+
+    x_focus = float(sys_.s2f_middle + params.defocus)
+    plotting.spot_diagram(res.detcenter, res.valid, path=out("spot.png"))
+    plotting.ray_sideview(res.trace.exit_rays, res.trace.exit_points,
+                          x_focus, 1e-3, n, n, path=out("virtualSource.png"))
+    mat, gy, gz = wavefront.wavefront_grid(res, n, n)
+    plotting.wavefront_map(mat, gy, gz, path=out("wavefront.png"))
+    o = _psf.psf_from_wavefront(mat, gy, gz, args.defocus_wave,
+                                args.wavelength)
+    plotting.psf_image(o["psf"], o["x_im"], o["y_im"], path=out("PSF.png"))
+    plotting.psf_image(o["psf"], o["x_im"], o["y_im"], log=True,
+                       path=out("PSF_log.png"))
+    plotting.psf_cuts(o["psf"], o["x_im"], o["y_im"],
+                      path=out("psf_cuts.png"))
+    offsets = np.linspace(-2e-4, 2e-4, 5)
+    spots = np.stack([to_numpy(trace.detector_points(res.trace,
+                                                     x_focus + dx))
+                      for dx in offsets])
+    plotting.around_focus_montage(spots, offsets, res.valid,
+                                  path=out("around_focus.png"))
+    print(json.dumps({"figures": made}))
+    return 0
 
 
-# akbx's commands that the port does not have yet
-UNPORTED = ("plot", "gui")
+def cmd_gui(args):
+    from akbx_torch import gui
+
+    gui.main(args.device)
+    return 0
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="akbx_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
-    for name in UNPORTED:
-        sub.add_parser(name, help="not ported yet").set_defaults(
-            fn=cmd_unported)
 
     p = sub.add_parser("trace", help="trace + wavefront + Legendre + PSF")
     _add_system_args(p)
@@ -452,6 +492,16 @@ def main(argv=None):
     p.add_argument("--na-o", dest="na_o", type=float, default=0.02)
     _add_device_arg(p)
     p.set_defaults(fn=cmd_design_na)
+
+    p = sub.add_parser("plot", help="diagnostic figure battery for a trace")
+    _add_system_args(p)
+    p.add_argument("--wavelength", type=float, default=13.5e-9)
+    p.add_argument("--defocus-wave", type=float, default=1e-2)
+    p.set_defaults(fn=cmd_plot)
+
+    p = sub.add_parser("gui", help="tkinter KB design tool")
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_gui)
 
     args = parser.parse_args(argv)
     return args.fn(args)

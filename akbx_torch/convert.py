@@ -62,3 +62,31 @@ def wave_field_from_numpy(fields: dict, device=None) -> WaveField:
     return WaveField(*[_f64(fields[k], device)
                        for k in ("points", "re", "im", "ds")],
                      int(fields.get("n_h", 0)), int(fields.get("n_v", 0)))
+
+
+def train_params_from_numpy(params: dict, device=None) -> dict:
+    """The train step's parameter dict (:func:`akbx_torch.parallel.
+    sharding.make_train_step`) from akbx's, as numpy arrays: ``align``
+    (26,) and ``figures`` (a coefficient array per mirror), each a leaf
+    tensor with ``requires_grad`` set."""
+    return {"align": _f64(params["align"], device).requires_grad_(),
+            "figures": [_f64(f, device).requires_grad_()
+                        for f in params["figures"]]}
+
+
+def adam_state_from_optax(optimizer: torch.optim.Adam, mu: dict, nu: dict,
+                          count) -> torch.optim.Adam:
+    """Load optax's Adam state (``ScaleByAdamState``'s ``mu``, ``nu`` and
+    ``count``, as numpy arrays in the parameter dict's structure) into
+    ``optimizer``, built on :func:`akbx_torch.parallel.sharding.
+    param_list` of the parameters: ``exp_avg``, ``exp_avg_sq`` and
+    ``step``.  The two updates are the same formula."""
+    from akbx_torch.parallel.sharding import param_list
+
+    params = optimizer.param_groups[0]["params"]
+    for p, m, v in zip(params, param_list(mu), param_list(nu), strict=True):
+        optimizer.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": _f64(m, p.device).reshape(p.shape),
+            "exp_avg_sq": _f64(v, p.device).reshape(p.shape)}
+    return optimizer

@@ -111,3 +111,19 @@ def wave_handoff(directory: str, system, engine: "tr.EngineResult",
     cond.update(conditions_extra or {})
     return io.save_wave_data(directory, source[:, 0], surfaces,
                              grid_image, grid_defocus, conditions=cond)
+
+
+def around_focus_spots(result: "tr.TraceResult", x_focus, offsets,
+                       valid=None):
+    """Spot metrics on a train of detector planes ``x_focus + offsets``
+    around focus (the III_I engine's around-focus montage, as data).
+    Returns a list of dicts with x, std_y, std_z, centroid (numpy)."""
+    out = []
+    v = result.valid if valid is None else valid
+    for dx in np.asarray(offsets):
+        det = tr.detector_points(result, x_focus + float(dx))
+        sy, sz = tr.spot_size(det, v)
+        c = tr.masked_mean(det, v[None, :], dim=1)
+        out.append({"x": float(x_focus + dx), "std_y": float(sy),
+                    "std_z": float(sz), "centroid": to_numpy(c)})
+    return out

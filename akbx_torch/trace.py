@@ -23,6 +23,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from akbx_torch.core import geometry as geo
 from akbx_torch.core import geometry_df as gdf
@@ -30,6 +31,7 @@ from akbx_torch.core import precision as pr
 from akbx_torch.core.precision import (DF, df_add, df_div, df_mul, df_mul_f,
                                        df_sqrt, df_sub)
 from akbx_torch.kernels import trace_kernel as tk
+from akbx_torch.parallel import sharding as sh
 from akbx_torch.surfaces import Mirror, has_figure, intersect_and_reflect
 from akbx_torch.systems import OpticalSystem
 from akbx_torch.utils import linspace, non_uniform_distribution
@@ -38,21 +40,31 @@ F32 = torch.float32
 F64 = torch.float64
 
 
-def masked_mean(x, valid, dim=None):
+def masked_mean(x, valid, dim=None, mesh=None):
+    """Mean of ``x`` over the ``valid`` rays (along ``dim``, or all);
+    with a ray-sharded ``mesh`` (:mod:`akbx_torch.parallel.sharding`) the
+    numerator and the count are each summed over the ranks first."""
     w = valid.to(x.dtype)
     if dim is None:
-        return torch.sum(x * w) / torch.clamp_min(torch.sum(w), 1.0)
-    return (torch.sum(x * w, dim=dim)
-            / torch.clamp_min(torch.sum(w, dim=dim), 1.0))
+        num, den = torch.sum(x * w), torch.sum(w)
+    else:
+        num, den = torch.sum(x * w, dim=dim), torch.sum(w, dim=dim)
+    return sh.all_sum(num, mesh) / torch.clamp_min(sh.all_sum(den, mesh),
+                                                   1.0)
 
 
-def ray_fan(angles_h: torch.Tensor, angles_v: torch.Tensor) -> torch.Tensor:
+def ray_fan(angles_h: torch.Tensor, angles_v: torch.Tensor, lo: int = 0,
+            hi: int | None = None) -> torch.Tensor:
     """Direction fan (3, nV*nH), row-major with the vertical angle varying
-    slowly: ``idx = iV * nH + iH``."""
-    th, tv = torch.meshgrid(torch.tan(angles_h), torch.tan(angles_v),
-                            indexing="xy")  # (nV, nH)
-    d = torch.stack([torch.ones_like(th), th, tv]).reshape(3, -1)
-    return geo.normalize(d)
+    slowly: ``idx = iV * nH + iH``; or its columns ``lo:hi``, bit for bit
+    those of the whole fan (the tangents are taken on the whole angle
+    vectors: the grazing trace amplifies a 1-ulp difference ~1e8)."""
+    n_h = angles_h.shape[0]
+    hi = n_h * angles_v.shape[0] if hi is None else hi
+    idx = torch.arange(lo, hi, device=angles_h.device)
+    th = torch.tan(angles_h)[idx % n_h]
+    tv = torch.tan(angles_v)[idx // n_h]
+    return geo.normalize(torch.stack([torch.ones_like(th), th, tv]))
 
 
 def fan_angles(fan: torch.Tensor, n: int, mode: str = "uniform"):
@@ -803,18 +815,20 @@ def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor):
 
 
 def exit_pupil_uniform_angles(result: TraceResult, rand_p0h, rand_p0v,
-                              n_h: int, n_v: int, stage: int = -1):
+                              n_h: int, n_v: int, stage: int = -1,
+                              mesh=None):
     """Re-derive source angles so *exit* angles are equally spaced.
 
     The exit angles of the center row/column map exit -> input angle by
     :func:`interp`, and the fan is rebuilt on equally spaced exit angles.
     ``stage`` selects which bounce's direction field to uniformize on:
-    -1 (default) = final exit angles; 1 = after the first mirror.
+    -1 (default) = final exit angles; 1 = after the first mirror.  With a
+    ray-sharded ``result`` (``mesh``) the center row and column of the
+    global fan are gathered from the ranks that hold them.
     """
     angle = result.directions[stage]
-    angle_h = torch.atan(angle[1] / angle[0])
-    angle_v = torch.atan(angle[2] / angle[0])
     dev = angle.device
+    lo = 0 if mesh is None else sh.shard_bounds(n_h * n_v, mesh)[0]
 
     # center column: iH = (n_h-1)//2, iV varies
     center_col = (torch.arange(n_v, device=dev) * n_h
@@ -825,8 +839,10 @@ def exit_pupil_uniform_angles(result: TraceResult, rand_p0h, rand_p0v,
                   if n_h == n_v
                   else ((n_v - 1) // 2) * n_h + torch.arange(n_h, device=dev))
 
-    av = angle_v[center_col]
-    ah = angle_h[center_row]
+    col = sh.take_columns(angle, center_col, lo, mesh)
+    row = sh.take_columns(angle, center_row, lo, mesh)
+    av = torch.atan(col[2] / col[0])
+    ah = torch.atan(row[1] / row[0])
 
     def remap(a_exit, a_in, n):
         eq = linspace(a_exit[0], a_exit[-1], n)
@@ -837,32 +853,36 @@ def exit_pupil_uniform_angles(result: TraceResult, rand_p0h, rand_p0v,
 
 
 def detector_points(result: TraceResult, x_plane) -> torch.Tensor:
-    """Intersect exit rays with the plane x = x_plane."""
+    """Intersect exit rays with the plane x = x_plane (a tensor or a
+    number)."""
+    pts = result.exit_points
+    x_plane = torch.as_tensor(x_plane, dtype=F64, device=pts.device)
     return geo.plane_intersect(geo.detector_plane(x_plane), result.exit_rays,
-                               result.exit_points)
+                               pts)
 
 
 def tilt_correct(result: TraceResult, detcenter: torch.Tensor,
-                 mode: str = "mean"):
+                 mode: str = "mean", mesh=None):
     """Remove the mean exit-beam tilt: rotate exit rays and exit points
     about the approximate focus so the beam axis is +x.  Returns
     (new_exit_rays, new_exit_points, theta_y, theta_z, focus_apprx).
     ``mode``: ``"mean"`` (mean of the ray angles) or ``"extremes"``
-    (midpoint of the extreme ray angles)."""
+    (midpoint of the extreme ray angles); over every rank of a
+    ray-sharded ``mesh``."""
     angle = result.exit_rays
     v = result.valid
     a_zx = torch.atan(angle[2] / angle[0])
     a_yx = torch.atan(angle[1] / angle[0])
     if mode == "extremes":
         inf = float("inf")
-        theta_y = -0.5 * (torch.min(torch.where(v, a_zx, inf))
-                          + torch.max(torch.where(v, a_zx, -inf)))
-        theta_z = 0.5 * (torch.min(torch.where(v, a_yx, inf))
-                         + torch.max(torch.where(v, a_yx, -inf)))
+        theta_y = -0.5 * (sh.all_min(torch.where(v, a_zx, inf), mesh)
+                          + sh.all_max(torch.where(v, a_zx, -inf), mesh))
+        theta_z = 0.5 * (sh.all_min(torch.where(v, a_yx, inf), mesh)
+                         + sh.all_max(torch.where(v, a_yx, -inf), mesh))
     else:
-        theta_y = -masked_mean(a_zx, v)
-        theta_z = masked_mean(a_yx, v)
-    focus_apprx = masked_mean(detcenter, v[None, :], dim=1)
+        theta_y = -masked_mean(a_zx, v, mesh=mesh)
+        theta_z = masked_mean(a_yx, v, mesh=mesh)
+    focus_apprx = masked_mean(detcenter, v[None, :], dim=1, mesh=mesh)
     rays2 = geo.rotate_vectors_yz(result.exit_rays, -theta_y, -theta_z)
     pts2 = geo.rotate_points_about(result.exit_points, focus_apprx,
                                    -theta_y, -theta_z)
@@ -892,14 +912,29 @@ class EngineResult(NamedTuple):
     w32_2: torch.Tensor | None = None
 
 
-def _wave2(detcenter, detcenter2, total2, v):
+def _wave2(detcenter, detcenter2, total2, v, mesh=None):
     """Wavefront on the defocused plane [nm]: OPL error minus the
     reference sphere about the mean focus."""
-    mean_focus = masked_mean(detcenter, v[None, :], dim=1)
-    dist_err2 = (total2 - masked_mean(total2, v)) * 1e9
+    mean_focus = masked_mean(detcenter, v[None, :], dim=1, mesh=mesh)
+    dist_err2 = (total2 - masked_mean(total2, v, mesh=mesh)) * 1e9
     sph = torch.sqrt(torch.sum((detcenter2 - mean_focus[:, None]) ** 2,
                                dim=0)) * 1e9
     return dist_err2 - sph
+
+
+def _trace_shard(trace_fn, system, rays, origins, chief_d0, chief_p0
+                 ) -> TraceResult:
+    """A deviation engine (:func:`trace_pallas`, :func:`trace_df`) on a
+    ray shard against the chief ray of the whole fan (``chief_d0``,
+    ``chief_p0``: (3, 1)), as akbx's trace of the whole fan has it: the
+    chief rides in front of the shard as column 0 and is dropped from the
+    result."""
+    res = trace_fn(system, torch.cat([chief_d0, rays], dim=1),
+                   torch.cat([chief_p0, origins], dim=1), chief_idx=0)
+    if isinstance(res, LazyTraceResult):
+        res = res.materialize()
+    return TraceResult(*(tuple(x[..., 1:] for x in field)
+                         for field in res[:4]), res.valid[1:])
 
 
 def run(system: OpticalSystem, n_h: int, n_v: int, defocus,
@@ -925,23 +960,35 @@ def run(system: OpticalSystem, n_h: int, n_v: int, defocus,
     launch no kernel: K1 does not model figures (akbx's kernel does not
     either).  Every route sums the OPL with the compensated
     :func:`akbx_torch.core.precision.sum_segments`, except ``"pallas"``
-    with figure errors, which sums in plain f64 as akbx does.  Ray
-    sharding raises ``NotImplementedError``.
+    off the fast engine, which sums in plain f64 as akbx does.
+
+    ``ray_sharding``: a one-dimensional ``DeviceMesh``
+    (:func:`akbx_torch.parallel.sharding.ray_mesh`).  Each rank traces its
+    columns of the one fan (:func:`akbx_torch.parallel.sharding.
+    shard_bounds`) and gets its columns of every per-ray field; the
+    reductions over rays (tilt, focus, wavefront means) are summed over
+    the ranks.  As in akbx, the fast engine runs only unsharded:
+    ``"pallas"`` traces each shard with K1 (:func:`trace_pallas`) and
+    finishes on the f64 path; it and ``"df32"`` trace against the whole
+    fan's chief ray.
     """
-    if ray_sharding is not None:
-        raise NotImplementedError(
-            "ray sharding is not ported yet (ROADMAP Queue 1, item 14)")
     if precision not in ("f64", "df32", "pallas"):
         raise ValueError(f"unknown precision {precision!r}")
+    mesh = ray_sharding
+    if mesh is not None and not isinstance(mesh, DeviceMesh):
+        raise TypeError("ray_sharding takes a DeviceMesh (akbx_torch."
+                        f"parallel.sharding.ray_mesh), got {type(mesh)}")
     figure = any(has_figure(m) for m in system.mirrors)
+    n = n_h * n_v
+    lo, hi = (0, n) if mesh is None else sh.shard_bounds(n, mesh)
 
     rand_p0h = fan_angles(system.fan_h, n_h, mode=fan_mode)
     rand_p0v = fan_angles(system.fan_v, n_v, mode=fan_mode)
-    src = system.source[:, None].expand(3, n_h * n_v)
-    rays = ray_fan(rand_p0h, rand_p0v)
+    src = system.source[:, None].expand(3, hi - lo)
     det_x = system.s2f_middle + defocus
 
-    if precision == "pallas" and not figure:
+    if precision == "pallas" and not figure and mesh is None:
+        rays = ray_fan(rand_p0h, rand_p0v)
         if exit_pupil_uniform:
             pre = trace_pallas(system, rays, src)
             rand_p0h, rand_p0v = exit_pupil_uniform_angles(
@@ -957,25 +1004,38 @@ def run(system: OpticalSystem, n_h: int, n_v: int, defocus,
                             out["focus"], rand_p0h, rand_p0v,
                             out["w32"], out["ddet32"], out["w32_2"])
 
-    trace_fn = trace_df if precision == "df32" and not figure else trace
-    result = trace_fn(system, rays, src)
+    engine = trace
+    if not figure and precision != "f64":
+        engine = trace_pallas if precision == "pallas" else trace_df
+
+    def trace_fan(angles_h, angles_v):
+        rays = ray_fan(angles_h, angles_v, lo, hi)
+        if engine is trace or mesh is None:
+            return engine(system, rays, src)
+        chief = ray_fan(angles_h, angles_v, n // 2, n // 2 + 1)
+        return _trace_shard(engine, system, rays, src, chief,
+                            system.source[:, None])
+
+    result = trace_fan(rand_p0h, rand_p0v)
     if exit_pupil_uniform:
         rand_p0h, rand_p0v = exit_pupil_uniform_angles(
-            result, rand_p0h, rand_p0v, n_h, n_v, stage=uniform_stage)
-        result = trace_fn(system, ray_fan(rand_p0h, rand_p0v), src)
+            result, rand_p0h, rand_p0v, n_h, n_v, stage=uniform_stage,
+            mesh=mesh)
+        result = trace_fan(rand_p0h, rand_p0v)
     detcenter = detector_points(result, det_x)
     if tilt_correction:
         rays2, pts2, theta_y, theta_z, focus_apprx = tilt_correct(
-            result, detcenter, mode=tilt_mode)
+            result, detcenter, mode=tilt_mode, mesh=mesh)
         result = result._replace(
             points=result.points[:-1] + (pts2,),
             directions=result.directions[:-1] + (rays2,),
         )
         detcenter = detector_points(result, det_x)
     else:
-        theta_y = torch.zeros((), dtype=F64, device=rays.device)
-        theta_z = torch.zeros((), dtype=F64, device=rays.device)
-        focus_apprx = masked_mean(detcenter, result.valid[None, :], dim=1)
+        theta_y = torch.zeros((), dtype=F64, device=src.device)
+        theta_z = torch.zeros((), dtype=F64, device=src.device)
+        focus_apprx = masked_mean(detcenter, result.valid[None, :], dim=1,
+                                  mesh=mesh)
     detcenter2 = detector_points(result, det_x + defocus_wave)
 
     d_last = torch.sqrt(torch.sum((detcenter - result.exit_points) ** 2,
@@ -983,8 +1043,8 @@ def run(system: OpticalSystem, n_h: int, n_v: int, defocus,
     d_last2 = torch.sqrt(torch.sum((detcenter2 - result.exit_points) ** 2,
                                    dim=0))
     if precision == "pallas":
-        # the figure route of the fast engine: akbx's plain f64 sum of the
-        # legs (~1e-13 m rms on the demeaned wavefront)
+        # off the fast engine (figures, or sharded): akbx's plain f64 sum
+        # of the legs (~1e-13 m rms on the demeaned wavefront)
         total = sum(result.segments) + d_last
         total2 = sum(result.segments) + d_last2
     else:
@@ -992,7 +1052,7 @@ def run(system: OpticalSystem, n_h: int, n_v: int, defocus,
         total = pr.sum_segments(list(result.segments) + [d_last])
         total2 = pr.sum_segments(list(result.segments) + [d_last2])
     v = result.valid
-    wave2 = _wave2(detcenter, detcenter2, total2, v)
+    wave2 = _wave2(detcenter, detcenter2, total2, v, mesh=mesh)
     return EngineResult(result, detcenter, detcenter2, total, total2, wave2,
                         v, theta_y, theta_z, focus_apprx, rand_p0h, rand_p0v)
 
@@ -1007,12 +1067,17 @@ def run_config(system: OpticalSystem, cfg, defocus) -> EngineResult:
                precision=cfg.precision)
 
 
-def spot_size(detcenter: torch.Tensor, valid: torch.Tensor):
-    """Masked std of the spot in (horizontal, vertical)."""
+def spot_size(detcenter: torch.Tensor, valid: torch.Tensor, mesh=None):
+    """Masked std of the spot in (horizontal, vertical); over every rank
+    of a ray-sharded ``mesh``."""
     w = valid.to(detcenter.dtype)
-    n = torch.clamp_min(torch.sum(w), 1.0)
-    mu_y = torch.sum(detcenter[1] * w) / n
-    mu_z = torch.sum(detcenter[2] * w) / n
-    sy = torch.sqrt(torch.sum(w * (detcenter[1] - mu_y) ** 2) / n)
-    sz = torch.sqrt(torch.sum(w * (detcenter[2] - mu_z) ** 2) / n)
+
+    def total(x):
+        return sh.all_sum(torch.sum(x), mesh)
+
+    n = torch.clamp_min(total(w), 1.0)
+    mu_y = total(detcenter[1] * w) / n
+    mu_z = total(detcenter[2] * w) / n
+    sy = torch.sqrt(total(w * (detcenter[1] - mu_y) ** 2) / n)
+    sz = torch.sqrt(total(w * (detcenter[2] - mu_z) ** 2) / n)
     return sy, sz

@@ -1,10 +1,13 @@
 """Engine utilities (port of :mod:`akbx.utils`): ``jnp.linspace``'s
 formula, thinned index lists, the edge-dense sigmoid fan, ray angles, grid
-pitches, power-of-2 grid decimation and stage timers."""
+pitches, power-of-2 grid decimation, stage timers, a stdout tee, a
+profiler trace and progress chunks."""
 
 from __future__ import annotations
 
 import contextlib
+import os
+import sys
 import time
 
 import numpy as np
@@ -113,3 +116,46 @@ def stage_timer(name: str, log=print):
         t0 = time.time()
         yield
         log(f"[{name}] {time.time() - t0:.3f} s")
+
+
+class TeeOutput:
+    """Write to a stream (stdout by default) and append to a log file
+    (the reference's ``DualOutput``)."""
+
+    def __init__(self, path: str, stream=None):
+        self.file = open(path, "a")
+        self.stream = stream or sys.stdout
+
+    def write(self, data):
+        self.stream.write(data)
+        self.file.write(data)
+
+    def flush(self):
+        self.stream.flush()
+        self.file.flush()
+
+    def close(self):
+        self.file.close()
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str):
+    """Profile the block with ``torch.profiler`` (the card's activity too,
+    where there is a card) and write a Chrome trace into ``log_dir``
+    (open it in Perfetto or chrome://tracing).  Yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def progress_chunks(total: int, fraction: float = 0.01):
+    """Chunk boundaries for coarse progress reporting (the reference's
+    1%-increment loop)."""
+    step = max(int(total * fraction), 1)
+    return [(i, min(i + step, total)) for i in range(0, total, step)]

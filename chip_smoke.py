@@ -93,8 +93,36 @@ Phases, one printed line or more each:
      d. one 129^2 -> 129^2 wave stage: backend="native" (akbx's C++/OpenMP
         host engine, built at first use) against the f64 path (3e-7 of the
         field), timed beside K3.
+ 15. the multi-device and run-tooling slice, on a one-rank NCCL process
+     group brought up in this process (a FileStore in a temporary
+     directory) and torn down after it:
+     a. sharded_trace at 2048x2048 (no re-fan or tilt; the re-fan and
+        tilt): precision="f64" against the unsharded f64 run (1e-12 m),
+        precision="pallas" (K1 on the shard, once, twice with the re-fan;
+        then f64) against the f64 engine (detcenter 5e-9 m, demeaned OPL
+        1e-9 m);
+     b. huygens_sharded and huygens_ring, 66,049 -> 66,049 points of a
+        seeded cloud at 145 / 146 m and 13.5 nm, against the f64 path
+        (rtol 1e-10 and atol 1e-12; the ring 1e-6 of the field);
+     c. psf_fft_sharded at 4128x4128 (a 258^2 pupil padded 16x, [11]'s
+        size) against compute_psf_fft: values rtol 1e-8, the gradient of a
+        real loss 1e-7;
+     d. trace_streamed: 2048x2048 in 512-row blocks against the unstreamed
+        f64 run (centroid 1e-8, std 1e-6, min/max 1e-8), then an 8192x8192
+        fan (6.7e7 rays, 16 blocks of 4.2e6), its time and peak memory;
+     e. make_train_step at 2048x2048 with 3x3 figures on the four mirrors:
+        two Adam steps (the loss non-increasing), the gradient against the
+        unsharded autograd one (1e-12), the step time and peak memory; a
+        checkpoint after the first step restored onto the card, whose
+        second step is the uninterrupted one bit for bit;
+     f. cli plot --device cuda --rays 257: its seven figures (where
+        matplotlib is missing, its figure calls recorded, their arrays
+        checked, nothing drawn);
+     g. torchrun --nproc-per-node 1 -m akbx_torch.parallel.dryrun, a
+        subprocess with a timeout.
 Then a JSON line of the kernels, each with its bound (K1 and K2 also
-at two mirrors, on KB's fan, and their launches on each path of 13): the larger of its
+at two mirrors, on KB's fan, and their launches on each path of 13, on
+14 and on 15's sharded trace): the larger of its
 bytes over 3.35e12 B/s and its f32 operations over 3.35e13 op/s (the H100
 SXM's 67 TFLOP/s f32 counts an FMA as two operations).  The operations
 are counted on each twin, with every f32 two_prod at 2 (a multiply and an
@@ -110,6 +138,7 @@ import inspect
 import json
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -1841,6 +1870,390 @@ def phase14(dev, base, tk, hk):
     return launched
 
 
+# --- phase 15: the multi-device and run-tooling slice -----------------------
+STREAM_BLOCK = 512      # rows a block of the streamed fans
+STREAM_BIG = 8192       # the giant fan: 6.7e7 rays, 16 blocks of 4.2e6
+PSF_PUPIL = 258         # x pad 16 = 4128^2, the PSF size of [11]
+TRAIN_LR = 1e-10        # akbx's train-step test (tests/test_sharding.py)
+SHARD_REL = 1e-12       # a one-rank mesh sums in the unsharded order
+RING_REL = 1e-6         # the ring vs the f64 path, of the field (akbx's)
+DRYRUN_TIMEOUT = 300
+DRYRUN = ["--nproc-per-node", "1", "-m", "akbx_torch.parallel.dryrun"]
+
+
+def nccl_mesh(tmp):
+    """A one-rank NCCL process group in this process and its "rays"
+    mesh; no other backend is tried."""
+    import torch.distributed as dist
+
+    from akbx_torch.parallel import sharding as sh
+
+    check(dist.is_nccl_available(), "NCCL is not available")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                            world_size=1, rank=0)
+    check(dist.get_backend() == "nccl", "the process group is not NCCL")
+    return sh.ray_mesh(device_type="cuda")
+
+
+def demeaned(res):
+    from akbx_torch import trace
+
+    return res.total_dist - trace.masked_mean(res.total_dist, res.valid)
+
+
+def phase15a_trace(card, mesh, vec, tk, hk):
+    """sharded_trace at N_SIDE^2: f64 against the unsharded f64 run, and
+    the K1 route against the f64 engine; returns K1's launches."""
+    from akbx_torch import trace
+    from akbx_torch.parallel import sharding as sh
+    from akbx_torch.systems import (AlignParams, WOLTER_3_1_DEFAULT,
+                                    build_wolter_3_1)
+
+    system = build_wolter_3_1(WOLTER_3_1_DEFAULT, AlignParams.from_vector(vec))
+    k1 = 0
+    for label, kw in (("no re-fan, no tilt", dict(exit_pupil_uniform=False,
+                                                  tilt_correction=False)),
+                      ("re-fan + tilt", dict(exit_pupil_uniform=True,
+                                             tilt_correction=True))):
+        gold = trace.run(system, N_SIDE, N_SIDE, vec[0], precision="f64",
+                         **kw)
+        ms64, s64 = timed_once(lambda: sh.sharded_trace(
+            system, N_SIDE, N_SIDE, vec[0], mesh, precision="f64", **kw))
+        e64 = max(float((s64.detcenter - gold.detcenter).abs().max()),
+                  float((s64.detcenter2 - gold.detcenter2).abs().max()),
+                  float((demeaned(s64) - demeaned(gold)).abs().max()))
+        check(torch.equal(s64.valid, gold.valid), "sharded f64 valid")
+        reset_counts(tk, hk)
+        msk1, sk1 = timed_once(lambda: sh.sharded_trace(
+            system, N_SIDE, N_SIDE, vec[0], mesh, precision="pallas", **kw))
+        launched = counts(tk, hk)
+        want = 2 if kw["exit_pupil_uniform"] else 1
+        check(launched == {"K1": want, "K2": 0, "K3": 0},
+              f"sharded pallas launched {launched}, want K1 {want} times")
+        k1 += launched["K1"]
+        e_det = float((sk1.detcenter - gold.detcenter).abs().max())
+        e_opl = float((demeaned(sk1) - demeaned(gold)).abs().max())
+        check(torch.equal(sk1.valid, gold.valid), "sharded K1 valid")
+        print(f"[15a] sharded_trace {N_SIDE}x{N_SIDE}, {label}, one rank "
+              f"(NCCL): f64 vs unsharded f64 max |err| {e64:.3e} m (bar "
+              f"{SHARD_REL}), {ms64:.3f} ms; precision=pallas (K1 "
+              f"{launched['K1']}x, then f64) vs f64 detcenter {e_det:.3e} m "
+              f"(bar 5e-9), demeaned OPL {e_opl:.3e} m (bar 1e-9), "
+              f"{msk1:.3f} ms (CUDA events, one run; {card})", flush=True)
+        check(e64 <= SHARD_REL, "sharded f64 vs unsharded")
+        check(e_det <= 5e-9 and e_opl <= 1e-9, "sharded K1 route vs f64")
+        del gold, s64, sk1
+    return k1
+
+
+def phase15b_huygens(dev, card, mesh, tk, hk):
+    """huygens_sharded and huygens_ring, W_SIDE^2 -> W_SIDE^2 points,
+    against the f64 path."""
+    from akbx_torch import wave
+    from akbx_torch.parallel import sharding as sh
+
+    n = W_SIDE ** 2
+    src, tgt = huygens_cloud(dev, n, n, SEED + 15)
+    reset_counts(tk, hk)
+    ref_ms, ref = timed_once(lambda: wave.propagate(
+        src, tgt, EUV, chunk=1024, use_pallas=False))
+    sh_ms, got = timed_once(lambda: sh.huygens_sharded(
+        src, tgt, EUV, mesh, chunk=1024))
+    ring_ms, ring = timed_once(lambda: sh.huygens_ring(
+        src.points, src.re * src.ds, src.im * src.ds, tgt, EUV, mesh,
+        chunk=1024))
+    check(counts(tk, hk)["K3"] == 0, "the f64 paths launched K3")
+    e_sh = max(float(((g - w).abs() - 1e-10 * w.abs()).max())
+               for g, w in zip(got, ref))
+    _, e_ring = field_err(ring, ref)
+    print(f"[15b] {n} -> {n} points at 13.5 nm, one rank: huygens_sharded "
+          f"vs the f64 path max(|err| - 1e-10 |f|) {e_sh:.3e} (bar 1e-12), "
+          f"{sh_ms:.3f} ms; huygens_ring of the field {e_ring:.3e} (bar "
+          f"{RING_REL}), {ring_ms:.3f} ms; the f64 path {ref_ms:.3f} ms "
+          f"(CUDA events, one run each; {card})", flush=True)
+    check(e_sh <= 1e-12, "huygens_sharded vs the f64 path")
+    check(e_ring <= RING_REL, "huygens_ring vs the f64 path")
+
+
+def phase15c_psf(dev, card, mesh):
+    """psf_fft_sharded at 4128^2 against compute_psf_fft: values and the
+    gradient of a real loss."""
+    from akbx_torch.analysis import psf
+    from akbx_torch.parallel import fft as pfft
+
+    rng = np.random.default_rng(SEED + 16)
+    y = np.linspace(-1.0, 1.0, PSF_PUPIL)
+    r2 = np.add.outer(y**2, y**2)
+    opd_np = 5e-9 * r2 + 1e-9 * rng.normal(size=r2.shape)
+    amp_np = np.where(r2 <= 1.0, 1.0, np.nan)
+    amp = torch.tensor(amp_np, device=dev)
+    weight = torch.tensor(rng.uniform(size=(16 * PSF_PUPIL,) * 2),
+                          device=dev)
+    args = (EUV, 1e-6, 0.3)
+    out = {}
+    for label, fn in (("sharded", lambda o: pfft.psf_fft_sharded(
+            o, amp, *args, mesh=mesh, pad_factor=16)),
+                      ("unsharded", lambda o: psf.compute_psf_fft(
+            o, amp, *args, pad_factor=16))):
+        opd = torch.tensor(opd_np, device=dev, requires_grad=True)
+        ms, (img, x_im, _) = timed_once(lambda: fn(opd))
+        torch.sum(weight * img).backward()
+        out[label] = (img.detach(), x_im, opd.grad, ms)
+        del img
+    (i_s, x_s, g_s, ms), (i_u, x_u, g_u, ms_u) = (out["sharded"],
+                                                  out["unsharded"])
+    e_i = float(((i_s - i_u).abs() - 1e-8 * i_u.abs()).max())
+    e_g = float((g_s - g_u).abs().max() / g_u.abs().max())
+    check(i_s.shape == (16 * PSF_PUPIL,) * 2, f"PSF shape {i_s.shape}")
+    check(torch.equal(x_s, x_u), "the PSF's image coordinates")
+    print(f"[15c] psf_fft_sharded {tuple(i_s.shape)} (pupil {PSF_PUPIL}^2 "
+          f"x pad 16), one rank: max(|err| - 1e-8 |I|) {e_i:.3e} (bar "
+          f"1e-10); gradient of sum(w I) of its scale {e_g:.3e} (bar 1e-7); "
+          f"forward {ms:.3f} ms sharded, {ms_u:.3f} ms unsharded (CUDA "
+          f"events, one run each; {card})", flush=True)
+    check(e_i <= 1e-10 and e_g <= 1e-7, "psf_fft_sharded vs compute_psf_fft")
+
+
+def phase15d_streamed(card, mesh, vec):
+    """trace_streamed: N_SIDE^2 in blocks against the unstreamed f64 run,
+    then the STREAM_BIG^2 fan, timed, with its peak memory."""
+    from akbx_torch import trace
+    from akbx_torch.parallel import batching
+    from akbx_torch.systems import (AlignParams, WOLTER_3_1_DEFAULT,
+                                    build_wolter_3_1)
+
+    system = build_wolter_3_1(WOLTER_3_1_DEFAULT, AlignParams.from_vector(vec))
+    st = batching.trace_streamed(system, N_SIDE, N_SIDE, vec[0],
+                                 block_rows=STREAM_BLOCK, mesh=mesh)
+    res = trace.run(system, N_SIDE, N_SIDE, vec[0], precision="f64",
+                    exit_pupil_uniform=False, tilt_correction=False)
+    yz = res.detcenter[1:3, res.valid]
+    errs = {"centroid": float(((st.centroid - yz.mean(dim=1)).abs()
+                               / yz.mean(dim=1).abs()).max()),
+            "std": float(((st.spot_std - yz.std(dim=1, correction=0)).abs()
+                          / yz.std(dim=1, correction=0)).max()),
+            "min": float(((st.min_yz - yz.amin(dim=1)).abs()
+                          / yz.amin(dim=1).abs()).max()),
+            "max": float(((st.max_yz - yz.amax(dim=1)).abs()
+                          / yz.amax(dim=1).abs()).max())}
+    check(int(st.n) == int(res.valid.sum()), "streamed valid count")
+    del res, yz
+    n_blocks = -(STREAM_BIG // -STREAM_BLOCK)
+    calls = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    big = batching.trace_streamed(system, STREAM_BIG, STREAM_BIG, vec[0],
+                                  block_rows=STREAM_BLOCK, mesh=mesh,
+                                  progress=lambda b, n: calls.append(b))
+    n_big = float(big.n)  # a host read: the last block has finished
+    big_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 - base_gb
+    rays = STREAM_BIG ** 2
+    check(calls == list(range(1, n_blocks + 1)), "streamed progress")
+    check(np.isfinite([float(big.spot_std[0]), float(big.opl_std)]).all()
+          and n_big > 0.9 * rays, f"giant fan stats (valid {n_big})")
+    print(f"[15d] trace_streamed {N_SIDE}x{N_SIDE} in {STREAM_BLOCK}-row "
+          f"blocks vs unstreamed f64: count exact, rel err centroid "
+          f"{errs['centroid']:.3e} (bar 1e-8), std {errs['std']:.3e} (bar "
+          f"1e-6), min {errs['min']:.3e} max {errs['max']:.3e} (bar 1e-8); "
+          f"{STREAM_BIG}x{STREAM_BIG} ({rays} rays, {n_blocks} blocks of "
+          f"{STREAM_BLOCK * STREAM_BIG}): {big_s:.3f} s host clock "
+          f"({rays / big_s:.4e} rays/s), peak memory {peak_gb:.3f} GB "
+          f"above the {base_gb:.3f} GB held; valid {n_big:.0f}, spot std "
+          f"{float(big.spot_std[0]):.6e} {float(big.spot_std[1]):.6e} m, "
+          f"OPL std {float(big.opl_std):.6e} m ({card})", flush=True)
+    check(errs["centroid"] <= 1e-8 and errs["std"] <= 1e-6
+          and errs["min"] <= 1e-8 and errs["max"] <= 1e-8,
+          "streamed stats vs unstreamed")
+
+
+def train_loss_fn(mesh):
+    """akbx's train-step test loss: the squared demeaned OPL, summed."""
+    from akbx_torch import trace
+    from akbx_torch.parallel import sharding as sh
+
+    def loss_fn(sys_, res):
+        w = res.total_dist - trace.masked_mean(res.total_dist, res.valid,
+                                               mesh=mesh)
+        return sh.all_sum(torch.sum(torch.where(res.valid, w, 0.0) ** 2),
+                          mesh) * 1e18
+    return loss_fn
+
+
+def phase15e_train(dev, card, mesh, base):
+    """make_train_step at N_SIDE^2 with 3x3 figures on the four mirrors:
+    two Adam steps, the gradient against the unsharded one, a checkpoint
+    and a bit-for-bit resume onto the card."""
+    import functools
+
+    from akbx_torch import checkpoint, convert
+    from akbx_torch.parallel import sharding as sh
+    from akbx_torch.systems import WOLTER_3_1_DEFAULT
+
+    fig = np.random.default_rng(SEED + 17).normal(0.0, 1e-9, (4, 3, 3))
+    start = {"align": np.zeros(26), "figures": list(fig)}
+    adam = functools.partial(torch.optim.Adam, lr=TRAIN_LR)
+    step, _, _ = sh.make_train_step(WOLTER_3_1_DEFAULT, train_loss_fn(mesh),
+                                    adam, N_SIDE, N_SIDE, mesh)
+    params = convert.train_params_from_numpy(start, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    opt, params, l1 = step(None, params)
+    l1 = float(l1)
+    step_ms = (time.perf_counter() - t0) * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    grads = [t.grad.clone() for t in sh.param_list(params)]
+    ckpt = os.path.join(base, "train_ckpt")
+    checkpoint.save_train_state(ckpt, 1, params, opt, extra={"loss": l1})
+    t0 = time.perf_counter()
+    _, params, l2 = step(opt, params)
+    l2 = float(l2)
+    step2_ms = (time.perf_counter() - t0) * 1e3
+
+    # the unsharded gradient at the start
+    _, loss_u, _ = sh.make_train_step(WOLTER_3_1_DEFAULT, train_loss_fn(None),
+                                      adam, N_SIDE, N_SIDE, None)
+    p_u = convert.train_params_from_numpy(start, dev)
+    loss_u(p_u).backward()
+    g_rel = max(float((g - u.grad).abs().max() / u.grad.abs().max())
+                for g, u in zip(grads, sh.param_list(p_u)))
+    del p_u
+
+    # resume from the checkpoint onto the card
+    state, s, extra = checkpoint.restore_train_state(ckpt)
+    check(s == 1 and extra == {"loss": l1}, "checkpoint step / extra")
+    check(state["params"]["align"].device == params["align"].device,
+          f"restored onto {state['params']['align'].device}")
+    q = {"align": state["params"]["align"].clone().requires_grad_(),
+         "figures": [f.clone().requires_grad_()
+                     for f in state["params"]["figures"]]}
+    opt_q = adam(sh.param_list(q))
+    opt_q.load_state_dict(state["opt_state"])
+    _, q, l2_q = step(opt_q, q)
+    same = all(torch.equal(a.detach(), b.detach())
+               for a, b in zip(sh.param_list(params), sh.param_list(q)))
+    print(f"[15e] make_train_step {N_SIDE}x{N_SIDE}, 3x3 figures on 4 "
+          f"mirrors, Adam lr {TRAIN_LR}, one rank: loss {l1:.9e} -> "
+          f"{l2:.9e}; gradient vs unsharded autograd of its scale "
+          f"{g_rel:.3e} (bar {SHARD_REL}); step {step_ms:.3f} ms, then "
+          f"{step2_ms:.3f} ms (host clock, synchronised), peak memory "
+          f"{peak_gb:.3f} GB; resumed step from the checkpoint bit for bit: "
+          f"{same} ({card})", flush=True)
+    # akbx's bar (tests/test_sharding.py): non-increasing to 1e-3
+    check(np.isfinite([l1, l2]).all() and l2 <= l1 * 1.001,
+          "train loss rose")
+    check(g_rel <= SHARD_REL, "sharded gradient vs unsharded")
+    check(same and float(l2_q) == l2, "the resumed step differs")
+
+
+PLOT_FIGURES = ("spot.png", "virtualSource.png", "wavefront.png", "PSF.png",
+                "PSF_log.png", "psf_cuts.png", "around_focus.png")
+
+
+def phase15f_cli_plot(card, base):
+    """cli plot --device cuda --rays W_SIDE: its seven figures.  Where the
+    machine has no matplotlib, the command still runs on the card with
+    each figure call recorded, its arrays checked, and nothing drawn."""
+    import importlib.util
+
+    from akbx_torch import plotting
+    from akbx_torch.utils import to_numpy
+
+    out = os.path.join(base, "plots")
+    argv = ["plot", "--rays", str(W_SIDE), "--device", "cuda", "--out", out]
+    if importlib.util.find_spec("matplotlib") is not None:
+        made, secs = run_cli(argv)
+        sizes = [os.path.getsize(f) for f in made["figures"]]
+        print(f"[15f] cli plot --rays {W_SIDE} --device cuda: {len(sizes)} "
+              f"figures, {min(sizes)}-{max(sizes)} bytes, {secs:.3f} s host "
+              f"clock ({card})", flush=True)
+        check([os.path.basename(f) for f in made["figures"]]
+              == list(PLOT_FIGURES) and min(sizes) > 0, "cli plot's figures")
+        return
+    calls = []
+
+    def recorder(name):
+        def record(*args, path=None, **kw):
+            arrays = [to_numpy(a) for a in args
+                      if isinstance(a, (torch.Tensor, np.ndarray))]
+            calls.append((os.path.basename(path), name,
+                          [a.shape for a in arrays],
+                          all(np.isfinite(a).any() and not np.isinf(a).any()
+                              for a in arrays)))
+        return record
+
+    names = ("spot_diagram", "ray_sideview", "wavefront_map", "psf_image",
+             "psf_cuts", "around_focus_montage")
+    saved = {n: getattr(plotting, n) for n in names}
+    try:
+        for n in names:
+            setattr(plotting, n, recorder(n))
+        made, secs = run_cli(argv)
+    finally:
+        for n, fn in saved.items():
+            setattr(plotting, n, fn)
+    psf_shape = (16 * (W_SIDE + 1),) * 2
+    print(f"[15f] cli plot --rays {W_SIDE} --device cuda: matplotlib is not "
+          f"installed here, so its {len(calls)} figure calls were recorded, "
+          f"not drawn: " + "; ".join(f"{f} {n} {[tuple(x) for x in sh]} "
+                                    f"finite {ok}"
+                                    for f, n, sh, ok in calls)
+          + f"; {secs:.3f} s host clock ({card})", flush=True)
+    check([c[0] for c in calls] == list(PLOT_FIGURES)
+          and [os.path.basename(f) for f in made["figures"]]
+          == list(PLOT_FIGURES), "cli plot's figure calls")
+    check(all(c[3] for c in calls), "cli plot's arrays")
+    check(calls[3][2][0] == psf_shape, f"PSF {calls[3][2][0]}")
+
+
+def phase15g_dryrun(card):
+    """torchrun --nproc-per-node 1 -m akbx_torch.parallel.dryrun, as a
+    subprocess of its own, in a process group of its own."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           *DRYRUN]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            process_group=0)
+    try:
+        out, _ = proc.communicate(timeout=DRYRUN_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    secs = time.perf_counter() - t0
+    last = [ln for ln in out.splitlines() if "dryrun over" in ln]
+    print(f"[15g] torchrun --nproc-per-node 1 -m akbx_torch.parallel.dryrun:"
+          f" exit {proc.returncode}, {secs:.1f} s; "
+          f"{last[-1] if last else out[-2000:]} ({card})", flush=True)
+    check(proc.returncode == 0 and last, "the dry run failed")
+
+
+def phase15(dev, card, vec, base, tk, hk):
+    """The multi-device and run-tooling slice on a one-rank NCCL mesh;
+    returns K1-K3's launches on its main path (the sharded K1 route)."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="akbx_nccl_") as tmp:
+        mesh = nccl_mesh(tmp)
+        try:
+            k1 = phase15a_trace(card, mesh, vec, tk, hk)
+            phase15b_huygens(dev, card, mesh, tk, hk)
+            phase15c_psf(dev, card, mesh)
+            phase15d_streamed(card, mesh, vec)
+            phase15e_train(dev, card, mesh, base)
+        finally:
+            dist.destroy_process_group()
+    phase15f_cli_plot(card, base)
+    phase15g_dryrun(card)
+    print(f"[15] phase 15 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"K1": k1, "K2": 0, "K3": 0}
+
+
 def main():
     t_start = time.perf_counter()
     # --- 1. the card -----------------------------------------------------
@@ -2106,6 +2519,9 @@ def main():
         print(f"[14] phase 14 took {time.perf_counter() - t14:.1f} s",
               flush=True)
 
+        # --- 15. the multi-device and run-tooling slice ------------------
+        launches15 = phase15(dev, smi, vec, base, tk, hk)
+
     kernels = [
         {"name": "K1 trace_deviation (bounce chain)", "route": "cuda",
          "source": "akbx_torch/csrc/trace_kernel.cu",
@@ -2115,7 +2531,8 @@ def main():
          "bound_by": k1_bound[1], "library_ms": None,
          "n_mirr_2": two_mirror(times13["kb"][0]),
          "launches_phase_13": {k: v["K1"] for k, v in launches13.items()},
-         "launches_phase_14": launches14["K1"]},
+         "launches_phase_14": launches14["K1"],
+         "launches_phase_15": launches15["K1"]},
         {"name": "K2 detector (tilt + detector planes + OPL)",
          "route": "cuda", "source": "akbx_torch/csrc/trace_kernel.cu",
          "replaces": "akbx/kernels/trace_kernel.py:469",
@@ -2124,14 +2541,16 @@ def main():
          "bound_by": k2_bound[1], "library_ms": None,
          "n_mirr_2": two_mirror(times13["kb"][1]),
          "launches_phase_13": {k: v["K2"] for k, v in launches13.items()},
-         "launches_phase_14": launches14["K2"]},
+         "launches_phase_14": launches14["K2"],
+         "launches_phase_15": launches15["K2"]},
         {"name": "K3 huygens (df32 Huygens contraction)", "route": "cuda",
          "source": "akbx_torch/csrc/huygens_kernel.cu",
          "replaces": "akbx/kernels/huygens.py:150",
          "launches": w_launches, "max_abs_err": k3_err, **k3_t,
-         "library_ms": None, "launches_phase_14": launches14["K3"]},
+         "library_ms": None, "launches_phase_14": launches14["K3"],
+         "launches_phase_15": launches15["K3"]},
     ]
-    print(f"[14] wall time {time.perf_counter() - t_start:.1f} s",
+    print(f"[15] wall time {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -208,9 +208,10 @@ def test_fast_trace_is_lazy():
     dict(exit_pupil_uniform=False, precision="pallas", ray_sharding=object()),
 ], ids=["df32", "ray_sharding"])
 def test_unported_options_raise(kwargs):
-    """Ray sharding (ROADMAP item 14) raises on either deviation engine;
+    """``ray_sharding`` takes a ``DeviceMesh``: anything else raises on
+    either deviation engine (sharded runs: tests/test_torch_parallel.py);
     precision='df32' alone runs (tests/test_torch_trace_df.py)."""
     s = tsys.build_wolter_3_1(tsys.WOLTER_3_1_DEFAULT,
                               tsys.AlignParams.zeros("cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ttr.run(s, 5, 5, defocus=0.0, **kwargs)

@@ -341,16 +341,15 @@ def test_cli_propagate_matches_akbx(cli_runs, tmp_path):
 
 
 def test_cli_unported_options_raise(cli_runs, tmp_path):
-    """An unported command of akbx's CLI raises (``--system kb`` no longer
-    does: tests/test_torch_systems_variants.py runs it against akbx's);
-    propagate --config reads akbx's
+    """No command of akbx's CLI is left unported (``--system kb`` runs
+    against akbx's in tests/test_torch_systems_variants.py, ``plot`` in
+    tests/test_torch_plotting.py); propagate --config reads akbx's
     WaveConfig file: on akbx's handoff it writes what the same command
     without it wrote (the file's wavelength is the default, and its
     use_pallas runs K3 as the default backend does)."""
     from akbx import config as jcfg
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.main(["plot"])
+    assert not hasattr(tcli, "UNPORTED")
     cfg = str(tmp_path / "wave.json")
     jcfg.save_config(jcfg.WaveConfig(), cfg)
     out = _cli(tcli, "propagate", cli_runs["export"][0]["out_dir"], "--out",
