@@ -1,0 +1,7 @@
+"""build_bwd_ms.align: the median milliseconds of the span ``build_bwd``."""
+
+from portbench.metrics._common import span_median
+
+
+def read(rec):
+    return span_median(rec, "build_bwd")
