@@ -34,7 +34,7 @@ import torch
 import torch.distributed as dist
 import torch.distributed.nn.functional as dfn
 
-from akbx_torch import default_device
+from akbx_torch import default_device, spans
 
 
 def ray_mesh(n_devices: int | None = None, device_type: str | None = None,
@@ -214,6 +214,7 @@ def huygens_sharded(source, target_points, wavelength, mesh,
                           chunk=chunk, use_pallas=False)
 
 
+@spans.spanned("ring")
 def huygens_ring(source_points, source_re_w, source_im_w, target_points,
                  wavelength, mesh, chunk: int = 1024):
     """Ring-scheduled Huygens: sources and targets both sharded.
@@ -254,15 +255,17 @@ def huygens_ring(source_points, source_re_w, source_im_w, target_points,
             reqs = dist.batch_isend_irecv([
                 dist.P2POp(dist.isend, cur, send_to, group),
                 dist.P2POp(dist.irecv, nxt, recv_from, group)])
-        parts = [wave._huygens_chunk(tp[:, c:c + chunk], cur[:3], cur[3],
-                                     cur[4], k)
-                 for c in range(0, tp.shape[1], chunk)]
-        if parts:
-            acc_re = acc_re + torch.cat([re for re, _ in parts])
-            acc_im = acc_im + torch.cat([im for _, im in parts])
-        for q in reqs:
-            q.wait()
+        with spans.span("ring.sum"):
+            parts = [wave._huygens_chunk(tp[:, c:c + chunk], cur[:3],
+                                         cur[3], cur[4], k)
+                     for c in range(0, tp.shape[1], chunk)]
+            if parts:
+                acc_re = acc_re + torch.cat([re for re, _ in parts])
+                acc_im = acc_im + torch.cat([im for _, im in parts])
         if reqs:
+            with spans.span("ring.wait"):
+                for q in reqs:
+                    q.wait()
             cur = nxt
     return acc_re, acc_im
 

@@ -27,7 +27,7 @@ from typing import NamedTuple
 
 import torch
 
-from akbx_torch import design, device_of
+from akbx_torch import design, device_of, spans
 from akbx_torch.core import geometry as geo
 from akbx_torch.core import quadric_df as qdf
 from akbx_torch.surfaces import (ellipse_coeffs, hyperbola_coeffs,
@@ -210,6 +210,7 @@ def _apply_align_local(coeffs, axes, six, center, ops=_PLAIN):
     return ops.shift(coeffs, dx * ax_x + dy * ax_y + dz * ax_z)
 
 
+@spans.spanned("systems.build")
 def build_wolter_3_1(spec: AKBSpec, params: AlignParams,
                      source_shift=(0.0, 0.0, 0.0),
                      unit_coupled: bool | str = False,
@@ -537,6 +538,7 @@ def _five_ray_bundle(th_h1, th_h2, th_v1, th_v2, theta1_h, theta1_v, dev):
     return geo.normalize(torch.stack([torch.ones_like(ts_h), ts_h, ts_v]))
 
 
+@spans.spanned("systems.build")
 def build_kb(spec: KBSpec, params: AlignParams,
              source_shift=(0.0, 0.0, 0.0)) -> OpticalSystem:
     """Place a KB pair (two elliptical mirrors) on the device of
@@ -684,6 +686,7 @@ def _wolter_3_3_base(spec: AKBSpec, params: AlignParams, order):
     return q, (R @ eye3.T).transpose(-1, -2)
 
 
+@spans.spanned("systems.build")
 def build_wolter_3_3_tandem(spec: AKBSpec, params: AlignParams,
                             source_shift=(0.0, 0.0, 0.0)) -> OpticalSystem:
     """Wolter III+III tandem AKB: hyp_V -> ell_V -> hyp_H -> ell_H, placed
@@ -777,6 +780,7 @@ def build_wolter_3_3_tandem(spec: AKBSpec, params: AlignParams,
     return OpticalSystem(mirrors, s2f_middle, fan_h, fan_v, src_shift, valid)
 
 
+@spans.spanned("systems.build")
 def build_wolter_3_3_alternating(spec: AKBSpec, params: AlignParams,
                                  source_shift=(0.0, 0.0, 0.0),
                                  two_mirror_only: bool = False

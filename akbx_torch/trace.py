@@ -25,6 +25,7 @@ from typing import NamedTuple
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
+from akbx_torch import spans
 from akbx_torch.core import geometry as geo
 from akbx_torch.core import geometry_df as gdf
 from akbx_torch.core import precision as pr
@@ -170,6 +171,7 @@ def _deviation_constants(system: OpticalSystem, P, D, T, chief_p0):
             branches, Ps)
 
 
+@spans.spanned("trace.chief")
 def _fast_scalars(system, rays, origins, chief_idx):
     """Chief trace + deviation constants."""
     chief_d0 = rays[:, chief_idx:chief_idx + 1]
@@ -425,9 +427,10 @@ class _TwinVJP(torch.autograd.Function):
         return outs
 
     @staticmethod
+    @spans.spanned("twin.backward")
     def backward(ctx, *grads):
         system = ctx.static[0]
-        with torch.enable_grad():
+        with spans.span("twin.rebuild"), torch.enable_grad():
             args = [t.detach().requires_grad_(need) for t, need in
                     zip(ctx.saved_tensors, ctx.needs_input_grad[1:])]
             k = len(Mirror._fields)
@@ -441,9 +444,10 @@ class _TwinVJP(torch.autograd.Function):
         wrt = [a for a in args if a.requires_grad]
         got = [None] * len(wrt)
         if pairs and wrt:
-            got = torch.autograd.grad([o for o, _ in pairs], wrt,
-                                      [g for _, g in pairs],
-                                      allow_unused=True)
+            with spans.span("twin.vjp"):
+                got = torch.autograd.grad([o for o, _ in pairs], wrt,
+                                          [g for _, g in pairs],
+                                          allow_unused=True)
         got = iter(got)
         return (None, *[next(got) if a.requires_grad else None
                         for a in args])
@@ -456,10 +460,11 @@ def _k1(system, rays, origins, chief_idx: int):
                                                  chief_idx)
     (Ms, bvecs, Ds, Dns, Ts, A_noms, Bp_noms, rhos, gCs, gAs, branches,
      Ps) = consts64
-    consts = tk.pack_consts(Ms, gCs, gAs, Ds, Dns, Ts, A_noms, Bp_noms,
-                            rhos, branches, bvecs)
-    return consts64, tk.trace_deviation(consts, origins - chief_p0,
-                                        rays - chief_d0, Ps.shape[0])
+    with spans.span("trace.k1"):
+        consts = tk.pack_consts(Ms, gCs, gAs, Ds, Dns, Ts, A_noms, Bp_noms,
+                                rhos, branches, bvecs)
+        return consts64, tk.trace_deviation(consts, origins - chief_p0,
+                                            rays - chief_d0, Ps.shape[0])
 
 
 def _trace_pallas_forward(system, rays, origins, chief_idx: int):
@@ -661,18 +666,19 @@ def _fast_devs_forward(system, rays, origins, det_x, det_x2, chief_idx: int,
     # the tilt angles and the pivot from K1's deviations as hi + lo in
     # f64, as the twin has them; akbx reduces the f32 hi words, ~1e-9 rad
     # off the f64 engine's angles (ROADMAP F9)
-    d4, q4 = _f64_of(d4_hi, d4_lo), _f64_of(q4_hi, q4_lo)
-    theta_y, theta_z = _tilt_stats(D4, d4, valid, tilt, tilt_mode)
-    focus = _pre_tilt_focus(P4, D4, det_x, q4, d4, valid)
-    (R, P4r, D4r, t_c, det_c, L, t_c2, det_c2, L2, total_chief,
-     total2_chief) = _fast_post_scalars(consts64, det_x, det_x2,
-                                        theta_y, theta_z, focus, tilt)
-
-    dcon = torch.cat([tk.pack_det_consts(R, D4r, t_c, L),
-                      tk.pack_det_consts(R, D4r, t_c2, L2)])
-    (ddet_hi, ddet_lo, dqr_hi, dqr_lo, ddr_hi, ddr_lo, dtot_hi,
-     dtot_lo) = tk.detector(dcon, q4_hi, q4_lo, d4_hi, d4_lo, dsum_hi,
-                            dsum_lo)
+    with spans.span("trace.tilt"):
+        d4, q4 = _f64_of(d4_hi, d4_lo), _f64_of(q4_hi, q4_lo)
+        theta_y, theta_z = _tilt_stats(D4, d4, valid, tilt, tilt_mode)
+        focus = _pre_tilt_focus(P4, D4, det_x, q4, d4, valid)
+        (R, P4r, D4r, t_c, det_c, L, t_c2, det_c2, L2, total_chief,
+         total2_chief) = _fast_post_scalars(consts64, det_x, det_x2,
+                                            theta_y, theta_z, focus, tilt)
+        dcon = torch.cat([tk.pack_det_consts(R, D4r, t_c, L),
+                          tk.pack_det_consts(R, D4r, t_c2, L2)])
+    with spans.span("trace.k2"):
+        (ddet_hi, ddet_lo, dqr_hi, dqr_lo, ddr_hi, ddr_lo, dtot_hi,
+         dtot_lo) = tk.detector(dcon, q4_hi, q4_lo, d4_hi, d4_lo, dsum_hi,
+                                dsum_lo)
     return FastDevOut(dq_hi, dq_lo, od_hi, od_lo, dt_hi, dt_lo,
                       ddet_hi[0], ddet_lo[0], ddet_hi[1], ddet_lo[1],
                       dqr_hi, dqr_lo, ddr_hi, ddr_lo,
@@ -761,7 +767,13 @@ def run_fast(system: OpticalSystem, rays, origins, det_x, det_x2,
                      for x in (det_x, det_x2))
     d = _fast_devs(system, rays, origins, det_x, det_x2, int(chief_idx),
                    bool(tilt_correction), str(tilt_mode))
+    with spans.span("trace.finish"):
+        return _fast_fields(system, rays, d)
 
+
+def _fast_fields(system, rays, d: FastDevOut) -> dict:
+    """:func:`run_fast`'s f64 fields and demeaned f32 wavefronts from the
+    fast engine's deviation outputs."""
     detcenter = d.det_c[:, None] + _f64_of(d.ddet_hi, d.ddet_lo)
     detcenter2 = d.det_c2[:, None] + _f64_of(d.ddet2_hi, d.ddet2_lo)
     total = d.total_chief + _f64_of(d.dtot_hi, d.dtot_lo)
@@ -937,6 +949,7 @@ def _trace_shard(trace_fn, system, rays, origins, chief_d0, chief_p0
                          for field in res[:4]), res.valid[1:])
 
 
+@spans.spanned("trace.run")
 def run(system: OpticalSystem, n_h: int, n_v: int, defocus,
         defocus_wave=1e-3, exit_pupil_uniform: bool = True,
         tilt_correction: bool = True, ray_sharding=None,
@@ -994,10 +1007,14 @@ def run(system: OpticalSystem, n_h: int, n_v: int, defocus,
             rand_p0h, rand_p0v = exit_pupil_uniform_angles(
                 pre, rand_p0h, rand_p0v, n_h, n_v, stage=uniform_stage)
             rays = ray_fan(rand_p0h, rand_p0v)
-        out = run_fast(system, rays, src, det_x, det_x + defocus_wave,
-                       tilt_correction=tilt_correction, tilt_mode=tilt_mode)
-        v = out["valid"]
-        wave2 = _wave2(out["detcenter"], out["detcenter2"], out["total2"], v)
+        d = _fast_devs(system, rays, src, det_x, det_x + defocus_wave,
+                       rays.shape[1] // 2, bool(tilt_correction),
+                       str(tilt_mode))
+        with spans.span("trace.finish"):
+            out = _fast_fields(system, rays, d)
+            v = out["valid"]
+            wave2 = _wave2(out["detcenter"], out["detcenter2"],
+                           out["total2"], v)
         return EngineResult(out["trace"], out["detcenter"],
                             out["detcenter2"], out["total"], out["total2"],
                             wave2, v, out["theta_y"], out["theta_z"],

@@ -13,6 +13,8 @@ import time
 import numpy as np
 import torch
 
+from akbx_torch import spans
+
 
 def to_numpy(x) -> np.ndarray:
     """A tensor (on any device) or an array-like as a numpy array."""
@@ -109,10 +111,11 @@ def downsample_grid(array, n_v: int, n_h: int, down_h: int = 0,
 @contextlib.contextmanager
 def stage_timer(name: str, log=print):
     """Wall-clock stage timing + a ``torch.profiler`` range of the same
-    name (visible in a profiler trace).  The wall clock measures the host:
-    on the card it ends before the stage's kernels do, unless the stage
-    synchronises."""
-    with torch.profiler.record_function(name):
+    name (visible in a profiler trace): the span ``name`` where the spans
+    are on (:mod:`akbx_torch.spans`), else the bare range.  The wall clock
+    measures the host: on the card it ends before the stage's kernels do,
+    unless the stage synchronises."""
+    with spans.span_or_range(name):
         t0 = time.time()
         yield
         log(f"[{name}] {time.time() - t0:.3f} s")
@@ -142,15 +145,31 @@ class TeeOutput:
 def profile_trace(log_dir: str):
     """Profile the block with ``torch.profiler`` (the card's activity too,
     where there is a card) and write a Chrome trace into ``log_dir``
-    (open it in Perfetto or chrome://tracing).  Yields the profiler."""
+    (open it in Perfetto or chrome://tracing).  The spans
+    (:mod:`akbx_torch.spans`) are on for the block, so the trace shows the
+    port's layers.  Yields the profiler; after the block, ``prof.spans``
+    holds the block's records where the block switched the spans on, and
+    is None where they were on already (the records stay for the caller's
+    :func:`akbx_torch.spans.take`)."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
+    device = "cpu"
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
+        device = "cuda"
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
+    owner = not spans.enabled()
+    if owner:
+        spans.enable(device)
+    try:
+        with profile(activities=activities) as prof:
+            yield prof
+    finally:
+        if owner:
+            records = spans.take()
+            spans.disable()
+    prof.spans = records if owner else None
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 

@@ -31,7 +31,7 @@ from typing import NamedTuple, Sequence
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from akbx_torch import device_of
+from akbx_torch import device_of, spans
 from akbx_torch.core import precision as pr
 from akbx_torch.core import trig as tg
 
@@ -290,7 +290,7 @@ def propagate_stages(source: WaveField, stages: Sequence[dict],
         if cached is not None:
             field = cached
         else:
-            with torch.profiler.record_function(f"huygens:{name}"):
+            with spans.span_or_range(f"huygens:{name}"):
                 field = propagate_field(current, pts, wavelength,
                                         target_ds=ds,
                                         n_h=stage.get("n_h", 0),

@@ -228,6 +228,11 @@ def test_huygens_ring_matches_akbx(ranks, key):
                                worker.WAVELENGTH, chunk=64, use_pallas=False)
     np.testing.assert_allclose(re, np.asarray(jre), rtol=1e-9, atol=1e-11)
     np.testing.assert_allclose(im, np.asarray(jim), rtol=1e-9, atol=1e-11)
+    # with the spans on: one ring, P sums, P - 1 waits; the same fields
+    got = ranks[0]["huygens"][key + "_spans"]
+    assert got["paths"] == sorted(["ring"] + ["ring/ring.sum"] * WORLD
+                                  + ["ring/ring.wait"] * (WORLD - 1))
+    assert got["same"]
 
 
 # --- batching ----------------------------------------------------------------

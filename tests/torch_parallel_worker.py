@@ -15,7 +15,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from akbx_torch import convert, trace
+from akbx_torch import convert, spans, trace
 from akbx_torch.parallel import batching, dryrun, fft as pfft
 from akbx_torch.parallel import sharding as sh
 from akbx_torch.systems import AlignParams, WOLTER_3_1_DEFAULT, build_wolter_3_1
@@ -98,6 +98,17 @@ def task_huygens(mesh, inp):
                                  WAVELENGTH, mesh, chunk=16)
         out[key] = (to_numpy(sh.gather_rays(re, mesh)),
                     to_numpy(sh.gather_rays(im, mesh)), re.shape[0])
+        # the same call with the spans on: its spans, and its fields
+        spans.enable("cpu")
+        try:
+            re2, im2 = sh.huygens_ring(d["src"], d["w_re"], d["w_im"],
+                                       d["tgt"], WAVELENGTH, mesh, chunk=16)
+        finally:
+            spans.disable()
+        recs = spans.take()
+        out[key + "_spans"] = {
+            "paths": sorted(r.path for r in recs),
+            "same": bool(torch.equal(re, re2) and torch.equal(im, im2))}
     return out
 
 
@@ -222,7 +233,8 @@ def run(rank: int, world: int, store: str, inputs: dict, queue) -> None:
                    {"trace_widths": {k: v["width"]
                                      for k, v in out["trace"].items()},
                     "huygens_widths": {k: v[2] for k, v in
-                                       out["huygens"].items()},
+                                       out["huygens"].items()
+                                       if not k.endswith("_spans")},
                     "train_grads": out["train"]["grads"],
                     "shard_widths": {k: v[0]
                                      for k, v in out["shard"].items()},
