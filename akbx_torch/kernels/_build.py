@@ -7,7 +7,8 @@ library lands in ``akbx_torch/_build/<hash>/``, keyed by a hash of the
 sources and flags, and is built at first use.  Never ``--use_fast_math``:
 the double-f32 error-free transforms need every add and multiply rounded
 as written (``-fmad=false``, IEEE division and square root); their one
-FMA is an explicit ``__fmaf_rn``, which ``-fmad`` does not touch.
+FMA is an explicit ``__fmaf_rn`` (K4's f64 ones ``__fma_rn``), which
+``-fmad`` does not touch.
 
 ``load(TUNE)`` builds a second library that also holds the kernels'
 timing variants (``chip_kernel_tune.py``).
@@ -46,6 +47,10 @@ _SIGNATURES = {
     "akbx_huygens": _K3,
     # a, b, n, hi, lo, stream
     "akbx_two_prod": [_P, _P, ctypes.c_longlong, _P, _P, _P],
+    # tgt, ld, n, src, w_re, w_im, m, k, part, acc_re, acc_im, stream
+    "akbx_huygens_f64": [_P, ctypes.c_longlong, ctypes.c_longlong, _P, _P,
+                         _P, ctypes.c_longlong, ctypes.c_double, _P, _P, _P,
+                         _P],
 }
 _TUNE_SIGNATURES = {
     # min_blocks, stream_stores, then K1's

@@ -216,20 +216,23 @@ def huygens_sharded(source, target_points, wavelength, mesh,
 
 @spans.spanned("ring")
 def huygens_ring(source_points, source_re_w, source_im_w, target_points,
-                 wavelength, mesh, chunk: int = 1024):
+                 wavelength, mesh):
     """Ring-scheduled Huygens: sources and targets both sharded.
 
     Each rank holds a block of the sources (padded with zero weights to
     equal blocks of a multiple of 8, as akbx pads them) and its targets
     (blocks of a multiple of 8).  At each of the P steps it integrates the
-    resident source block into its targets through the f64 path
-    (``wave._huygens_chunk``, in target chunks of ``chunk``) while the
-    block travels on to rank ``r + 1`` and the next one arrives from
-    ``r - 1`` (``batch_isend_irecv``, double-buffered).  P - 1 transfers:
-    a one-rank ring sends nothing.  ``source_re_w/im_w`` already include
-    the ds quadrature weights.  Returns this rank's (re, im).
+    resident source block into its targets in f64 while the block travels
+    on to rank ``r + 1`` and the next one arrives from ``r - 1``
+    (``batch_isend_irecv``, double-buffered).  P - 1 transfers: a one-rank
+    ring sends nothing.  ``source_re_w/im_w`` already include the ds
+    quadrature weights.  Returns this rank's (re, im).
+
+    The sum is :func:`akbx_torch.kernels.huygens_f64.huygens_f64`, once
+    a step: K4 on the card, which records no gradient (an input that
+    requires grad under grad mode raises), its twin on the CPU.
     """
-    from akbx_torch import wave
+    from akbx_torch.kernels.huygens_f64 import huygens_f64
 
     k = 2.0 * math.pi / wavelength
     p, r = mesh.size(), mesh.get_local_rank()
@@ -243,7 +246,7 @@ def huygens_ring(source_points, source_re_w, source_im_w, target_points,
     cur[3, :hi - lo] = source_re_w[lo:hi]
     cur[4, :hi - lo] = source_im_w[lo:hi]
     t_lo, t_hi = shard_bounds(target_points.shape[1], mesh, multiple=8)
-    tp = target_points[:, t_lo:t_hi]
+    tp = target_points[:, t_lo:t_hi].contiguous()
     acc_re = tp.new_zeros(tp.shape[1])
     acc_im = tp.new_zeros(tp.shape[1])
     send_to = dist.get_global_rank(group, (r + 1) % p)
@@ -256,12 +259,7 @@ def huygens_ring(source_points, source_re_w, source_im_w, target_points,
                 dist.P2POp(dist.isend, cur, send_to, group),
                 dist.P2POp(dist.irecv, nxt, recv_from, group)])
         with spans.span("ring.sum"):
-            parts = [wave._huygens_chunk(tp[:, c:c + chunk], cur[:3],
-                                         cur[3], cur[4], k)
-                     for c in range(0, tp.shape[1], chunk)]
-            if parts:
-                acc_re = acc_re + torch.cat([re for re, _ in parts])
-                acc_im = acc_im + torch.cat([im for _, im in parts])
+            huygens_f64(tp, cur[:3], cur[3], cur[4], k, acc_re, acc_im)
         if reqs:
             with spans.span("ring.wait"):
                 for q in reqs:

@@ -32,8 +32,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from akbx_torch import device_of, spans
-from akbx_torch.core import precision as pr
-from akbx_torch.core import trig as tg
+from akbx_torch.kernels.huygens_f64 import huygens_tile
 
 F64 = torch.float64
 
@@ -125,27 +124,6 @@ def calc_ds(points: torch.Tensor, n_v: int, n_h: int) -> torch.Tensor:
     return dS.reshape(-1)
 
 
-def _huygens_chunk(targets, src_points, src_re, src_im, k):
-    """One (chunk, M) tile of the Huygens sum in f64 with reduced phases.
-
-    ``src_re/src_im`` are pre-multiplied by ds.
-    """
-    dx = targets[0][:, None] - src_points[0][None, :]
-    dy = targets[1][:, None] - src_points[1][None, :]
-    dz = targets[2][:, None] - src_points[2][None, :]
-    r = torch.sqrt(dx * dx + dy * dy + dz * dz)
-    # phase = -k * r, range-reduced in double-word before sincos
-    kp = pr.two_prod(torch.full_like(r, k), r)
-    s, c = tg.sincos_reduced(-kp.hi, -kp.lo)
-    inv_r = 1.0 / r
-    cr = c * inv_r
-    sr = s * inv_r
-    # (a + ib)(c + is) with phase e^{-ikr} = c + i s  (s already has the sign)
-    re = cr @ src_re - sr @ src_im
-    im = sr @ src_re + cr @ src_im
-    return re, im
-
-
 def _propagate_xla(src_points, src_re, src_im, src_ds, target_points,
                    wavelength: float, chunk: int = 2048):
     """Differentiable f64 Huygens core: a loop over target chunks, each
@@ -160,7 +138,7 @@ def _propagate_xla(src_points, src_re, src_im, src_ds, target_points,
     w_im = src_im * src_ds
 
     def body(t):
-        return _huygens_chunk(t, src_pts, w_re, w_im, k)
+        return huygens_tile(t, src_pts, w_re, w_im, k)
 
     outs = []
     for a in range(0, tgt_pts.shape[1], chunk):

@@ -24,7 +24,7 @@ transfers and the distributed transposes move data between cards.
      1e-12 m), and the K1 route against it (5e-9 m, 1e-9 m);
   b. huygens_sharded and huygens_ring, 66,049 -> 66,049 points at 13.5
      nm, against the f64 path on each rank's own targets (rtol 1e-10;
-     the ring 1e-6 of the field);
+     the ring, K4 once a step, 1e-6 of the field);
   c. psf_fft_sharded at 4096x4096 against compute_psf_fft: values rtol
      1e-8, the gradient of a real loss 1e-7 of its scale;
   d. trace_streamed at 2048x2048 in 512-row blocks against the
@@ -82,6 +82,7 @@ def run(size, on_card):
     from akbx_torch import trace, wave
     from akbx_torch.analysis import psf
     from akbx_torch.kernels import huygens as hk
+    from akbx_torch.kernels import huygens_f64 as k4
     from akbx_torch.kernels import trace_kernel as tk
     from akbx_torch.parallel import batching, dryrun, fft as pfft
     from akbx_torch.parallel import sharding as sh
@@ -178,19 +179,25 @@ def run(size, on_card):
     ref = wave.propagate(src, tgt[:, lo:hi], cs.EUV, use_pallas=False)
     e_sh = worst(max(float(((g - r).abs() - 1e-10 * r.abs()).max())
                      if r.numel() else -1.0 for g, r in zip(got, ref)))
+    k4_before = k4.huygens_f64.launches
     ring_ms, ring = timed(lambda: sh.huygens_ring(
         src.points, src.re * src.ds, src.im * src.ds, tgt, cs.EUV, mesh))
+    k4_launches = k4.huygens_f64.launches - k4_before
     lo, hi = sh.shard_bounds(w, mesh, multiple=8)
     ref = wave.propagate(src, tgt[:, lo:hi], cs.EUV, use_pallas=False)
     scale = worst(torch.complex(*ref).abs().max() if hi > lo else 0.0)
     e_ring = worst(torch.complex(*ring).sub(torch.complex(*ref)).abs().max()
                    if hi > lo else 0.0) / scale
     results["huygens"] = {"sharded_ms": sh_ms, "ring_ms": ring_ms,
-                          "sharded_err": e_sh, "ring_rel": e_ring}
+                          "sharded_err": e_sh, "ring_rel": e_ring,
+                          "k4_launches": k4_launches}
     say(f"[b] {w} -> {w} points, {p} ranks: huygens_sharded max(|err| - "
         f"1e-10 |f|) {e_sh:.3e} (bar 1e-12), {sh_ms:.3f} ms; huygens_ring "
-        f"{e_ring:.3e} of the field (bar 1e-6), {ring_ms:.3f} ms ({card})")
+        f"{e_ring:.3e} of the field (bar 1e-6), {ring_ms:.3f} ms, K4 "
+        f"launches on rank 0: {k4_launches} ({card})")
     cs.check(e_sh <= 1e-12 and e_ring <= 1e-6, "sharded Huygens")
+    # one K4 launch a ring step on the card, none on the CPU
+    cs.check(k4_launches == (p if on_card else 0), "the ring's K4 launches")
     del src, tgt, got, ring, ref
 
     # c. the sharded PSF

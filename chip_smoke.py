@@ -9,8 +9,10 @@ Phases, one printed line or more each:
   1. the card (nvidia-smi name and power limit); TF32 matmul must be off;
   2. build the CUDA kernels from akbx_torch/csrc (first use); their PTX
      must hold no approximate sin, cos, division or square root and no
-     flush-to-zero (K1's one rsqrt.approx is df_rsqrt's first guess), and
-     K3's FMAs must be those of sinf, cosf and its two_prods;
+     flush-to-zero (K1's one rsqrt.approx is df_rsqrt's first guess),
+     K3's FMAs must be those of sinf, cosf and its two_prods, and K4's
+     f32 instructions and FMAs none beyond those of sincos(double), its
+     two_prods and its sums;
   3. df32.cuh's two_prod on 1e8 seeded pairs against the twin's, bit for
      bit; then each kernel against its plain PyTorch twin on the card, at
      the main path's shapes: the deviations of a 2048x2048 fan (4,194,304
@@ -103,7 +105,8 @@ Phases, one printed line or more each:
         1e-9 m);
      b. huygens_sharded and huygens_ring, 66,049 -> 66,049 points of a
         seeded cloud at 145 / 146 m and 13.5 nm, against the f64 path
-        (rtol 1e-10 and atol 1e-12; the ring 1e-6 of the field);
+        (rtol 1e-10 and atol 1e-12; the ring, through K4, 1e-6 of the
+        field);
      c. psf_fft_sharded at 4128x4128 (a 258^2 pupil padded 16x, [11]'s
         size) against compute_psf_fft: values rtol 1e-8, the gradient of a
         real loss 1e-7;
@@ -120,14 +123,21 @@ Phases, one printed line or more each:
         checked, nothing drawn);
      g. torchrun --nproc-per-node 1 -m akbx_torch.parallel.dryrun, a
         subprocess with a timeout.
+ 16. K4 (the exact-f64 Huygens tile of huygens_ring) against its twin on
+     the card at ragged counts and at the ring's tile, 16,520 x 16,520 (one
+     rank's targets and source block at 257^2 on four ranks), to 1e-9 of
+     the field, each twice, bit for bit; its time there beside its bound
+     (the twin's operations a pair over the H100's 1.675e13 f64
+     instructions/s) and the twin's.
 Then a JSON line of the kernels, each with its bound (K1 and K2 also
 at two mirrors, on KB's fan, and their launches on each path of 13, on
-14 and on 15's sharded trace): the larger of its
+14 and on 15's sharded trace; K4's in 15's ring, its main path, and in
+16's calls): the larger of its
 bytes over 3.35e12 B/s and its f32 operations over 3.35e13 op/s (the H100
 SXM's 67 TFLOP/s f32 counts an FMA as two operations).  The operations
 are counted on each twin, with every f32 two_prod at 2 (a multiply and an
-FMA, as the kernels run it; the twin takes the FMA through f64).  As the
-last line
+FMA, as the kernels run it; the twin takes the FMA through f64); K4's
+are f64 operations, over 1.675e13 op/s (33.5 TFLOP/s).  As the last line
 {"ok": true, "device": {...}}.  Any failure raises: the exit code is not
 0 and the last line is not printed.
 """
@@ -443,10 +453,18 @@ def check_ptx(hk):
                     "  float a = x[threadIdx.x];\n"
                     "  y[threadIdx.x] = sinf(a);\n"
                     "  y[threadIdx.x + 32] = cosf(a);\n}\n")
+        ref64 = os.path.join(tmp, "sincos64.cu")
+        with open(ref64, "w") as f:
+            f.write("__global__ void k(const double* x, double* y) {\n"
+                    "  double s, c;\n"
+                    "  sincos(x[threadIdx.x], &s, &c);\n"
+                    "  y[threadIdx.x] = s;\n"
+                    "  y[threadIdx.x + 32] = c;\n}\n")
         jobs = {}
         for label, cu in (("K3", _build.CSRC / "huygens_kernel.cu"),
                           ("K1+K2", _build.CSRC / "trace_kernel.cu"),
-                          ("sinf+cosf", ref)):
+                          ("K4", _build.CSRC / "huygens_f64_kernel.cu"),
+                          ("sinf+cosf", ref), ("sincos", ref64)):
             out = os.path.join(tmp, f"{len(jobs)}.ptx")
             jobs[label] = (out, subprocess.Popen(
                 [_build._nvcc(), *flags, "-I", str(_build.CSRC), "-ptx",
@@ -459,7 +477,7 @@ def check_ptx(hk):
             ptx[label] = open(out).read()
     fma = {k: v.count("fma.rn.f32") for k, v in ptx.items()}
     banned = {k: {pat: len(re.findall(pat, ptx[k])) for pat in _BANNED_PTX}
-              for k in ("K3", "K1+K2")}
+              for k in ("K3", "K1+K2", "K4")}
     rsqrt = ptx["K1+K2"].count("rsqrt.approx")
     # one pair on the twin: its two_prod calls are the kernel's sites
     one = [torch.zeros(6, 1), torch.ones(6, 1), torch.ones(2, 1),
@@ -478,6 +496,20 @@ def check_ptx(hk):
           "a kernel's PTX has an approximate or flushing instruction")
     check(chains > 0 and fma["K3"] == chains * (fma["sinf+cosf"] + sites),
           "K3's PTX has FMAs beyond sinf, cosf and its two_prods")
+    # K4 is f64 throughout: any f32 instruction, or FMA beyond its two
+    # two_prods and four multiply-adds, would come from sincos alone
+    f32 = {k: len(re.findall(r"\.f32\b", ptx[k])) for k in ("K4", "sincos")}
+    fma64 = {k: ptx[k].count("fma.rn.f64") for k in ("K4", "sincos")}
+    chains4 = ptx["K4"].count("sqrt.rn.f64")   # one per pair chain
+    print(f"[2] K4 PTX: {chains4} pair chains; {f32['K4']} f32 "
+          f"instructions, {fma64['K4']} fma.rn.f64; a kernel of only "
+          f"sincos(double): {f32['sincos']} f32, {fma64['sincos']} "
+          f"fma.rn.f64; {chains4} x ({fma64['sincos']} + 6) = "
+          f"{chains4 * (fma64['sincos'] + 6)}", flush=True)
+    check(chains4 > 0 and f32["K4"] <= chains4 * f32["sincos"],
+          "K4's PTX has float32 instructions beyond those of sincos")
+    check(fma64["K4"] <= chains4 * (fma64["sincos"] + 6),
+          "K4's PTX has FMAs beyond sincos, its two_prods and sums")
 
 
 def check_two_prod(dev, n=100_000_000):
@@ -1948,8 +1980,9 @@ def phase15a_trace(card, mesh, vec, tk, hk):
 
 def phase15b_huygens(dev, card, mesh, tk, hk):
     """huygens_sharded and huygens_ring, W_SIDE^2 -> W_SIDE^2 points,
-    against the f64 path."""
+    against the f64 path; returns K4's launches in the ring."""
     from akbx_torch import wave
+    from akbx_torch.kernels import huygens_f64 as k4
     from akbx_torch.parallel import sharding as sh
 
     n = W_SIDE ** 2
@@ -1959,20 +1992,29 @@ def phase15b_huygens(dev, card, mesh, tk, hk):
         src, tgt, EUV, chunk=1024, use_pallas=False))
     sh_ms, got = timed_once(lambda: sh.huygens_sharded(
         src, tgt, EUV, mesh, chunk=1024))
+    # one ring step over every source (padded to a multiple of 8): K4 in
+    # as many target chunks as its scratch of SCRATCH_BYTES holds
+    per = k4.SCRATCH_BYTES // (2 * -(-(-(-n // 8) * 8) // k4.SPLIT) * 8)
+    k4_design = -(-n // per)
+    k4.huygens_f64.launches = 0
     ring_ms, ring = timed_once(lambda: sh.huygens_ring(
-        src.points, src.re * src.ds, src.im * src.ds, tgt, EUV, mesh,
-        chunk=1024))
+        src.points, src.re * src.ds, src.im * src.ds, tgt, EUV, mesh))
     check(counts(tk, hk)["K3"] == 0, "the f64 paths launched K3")
+    k4_launches = k4.huygens_f64.launches
+    check(k4_launches == k4_design, f"the one-rank ring launched K4 "
+          f"{k4_launches}x, not {k4_design}x")
     e_sh = max(float(((g - w).abs() - 1e-10 * w.abs()).max())
                for g, w in zip(got, ref))
     _, e_ring = field_err(ring, ref)
     print(f"[15b] {n} -> {n} points at 13.5 nm, one rank: huygens_sharded "
           f"vs the f64 path max(|err| - 1e-10 |f|) {e_sh:.3e} (bar 1e-12), "
-          f"{sh_ms:.3f} ms; huygens_ring of the field {e_ring:.3e} (bar "
-          f"{RING_REL}), {ring_ms:.3f} ms; the f64 path {ref_ms:.3f} ms "
-          f"(CUDA events, one run each; {card})", flush=True)
+          f"{sh_ms:.3f} ms; huygens_ring (K4 {k4_launches}x: one step in "
+          f"chunks of {per} targets) of the field {e_ring:.3e} (bar {RING_REL}), "
+          f"{ring_ms:.3f} ms; the f64 path {ref_ms:.3f} ms (CUDA events, "
+          f"one run each; {card})", flush=True)
     check(e_sh <= 1e-12, "huygens_sharded vs the f64 path")
     check(e_ring <= RING_REL, "huygens_ring vs the f64 path")
+    return k4_launches
 
 
 def phase15c_psf(dev, card, mesh):
@@ -2234,7 +2276,8 @@ def phase15g_dryrun(card):
 
 def phase15(dev, card, vec, base, tk, hk):
     """The multi-device and run-tooling slice on a one-rank NCCL mesh;
-    returns K1-K3's launches on its main path (the sharded K1 route)."""
+    returns K1-K4's launches on its main paths (the sharded K1 route; the
+    ring's K4)."""
     import torch.distributed as dist
 
     t0 = time.perf_counter()
@@ -2242,7 +2285,7 @@ def phase15(dev, card, vec, base, tk, hk):
         mesh = nccl_mesh(tmp)
         try:
             k1 = phase15a_trace(card, mesh, vec, tk, hk)
-            phase15b_huygens(dev, card, mesh, tk, hk)
+            k4 = phase15b_huygens(dev, card, mesh, tk, hk)
             phase15c_psf(dev, card, mesh)
             phase15d_streamed(card, mesh, vec)
             phase15e_train(dev, card, mesh, base)
@@ -2251,7 +2294,94 @@ def phase15(dev, card, vec, base, tk, hk):
     phase15f_cli_plot(card, base)
     phase15g_dryrun(card)
     print(f"[15] phase 15 took {time.perf_counter() - t0:.1f} s", flush=True)
-    return {"K1": k1, "K2": 0, "K3": 0}
+    return {"K1": k1, "K2": 0, "K3": 0, "K4": k4}
+
+
+K4_REL = 1e-9           # K4 vs its twin, of the field's scale (sum order)
+RING_TILE = (16_520, 16_520)  # the ring's tile at 257^2 on four ranks
+F64_OPS = 1.675e13      # H100 SXM f64 instructions/s, an FMA counted once
+
+
+def k4_args(dev, n, m, seed):
+    """K4's arguments on a seeded huygens_cloud, in the ring's absolute
+    coordinates (sources near 145 m, targets near 146 m)."""
+    src, tgt = huygens_cloud(dev, n, m, seed)
+    return (tgt.contiguous(), src.points.contiguous(), src.re * src.ds,
+            src.im * src.ds, 2.0 * np.pi / EUV)
+
+
+def k4_ops_per_pair():
+    """K4's operations a pair, counted on its twin: what one more source
+    adds to one target's elementwise ops (a division, a square root, a sine
+    counted as one; a two_prod as 2), and the contraction's 4 FMAs
+    (count_ops counts a matrix-vector product once an output)."""
+    from akbx_torch.kernels import huygens_f64 as k4
+
+    def count(m):
+        t = torch.full((3, 1), 146.0, dtype=torch.float64)
+        s = torch.rand((3, m), dtype=torch.float64)
+        w = torch.ones(m, dtype=torch.float64)
+        acc = torch.zeros(1, dtype=torch.float64)
+        return count_ops(k4.huygens_f64_reference, t, s, w, w, 4.6e8, acc,
+                         acc.clone())[0]
+
+    return count(2) - count(1) + 4
+
+
+def phase16(dev, card):
+    """K4, the exact-f64 Huygens tile of huygens_ring, against its twin on
+    the card at ragged counts and at the ring's tile; its time there beside
+    its bound and the twin's.  Returns its entry of the kernels' line."""
+    from akbx_torch.kernels import huygens_f64 as k4
+
+    def run(fn, args):
+        acc = torch.zeros((2, args[0].shape[1]), dtype=torch.float64,
+                          device=dev)
+        fn(*args, acc[0], acc[1])
+        torch.cuda.synchronize()
+        return acc
+
+    launches0 = k4.huygens_f64.launches
+    worst = 0.0
+    for n, m in ((1, 1), (255, 257), (1000, 1537), RING_TILE):
+        args = k4_args(dev, n, m, SEED + n + m)
+        got = run(k4.huygens_f64, args)
+        again = run(k4.huygens_f64, args)
+        want = run(k4.huygens_f64_reference, args)
+        err, rel = field_err(got, want)
+        same = torch.equal(got.view(torch.int64), again.view(torch.int64))
+        worst = max(worst, err)
+        print(f"[16] K4 vs twin N={n} x M={m} at 13.5 nm: max |err| "
+              f"{err:.3e}, of the field {rel:.3e} (bar {K4_REL}); two runs "
+              f"bit-identical {same}", flush=True)
+        check(rel <= K4_REL, f"K4 disagrees with its twin ({n} x {m})")
+        check(same, f"K4's runs differ ({n} x {m})")
+    launches = k4.huygens_f64.launches - launches0
+    check(launches == 8, f"K4 launched {launches}x for 8 calls")
+    n, m = RING_TILE
+    args = k4_args(dev, n, m, SEED + 16)
+    acc = torch.zeros((2, n), dtype=torch.float64, device=dev)
+    k4_ms = time_ms(lambda: k4.huygens_f64(*args, acc[0], acc[1]))
+    twin_ms = time_ms(lambda: k4.huygens_f64_reference(*args, acc[0],
+                                                       acc[1]),
+                      reps=3, warmup=1)
+    ops = k4_ops_per_pair()
+    # every input read once, the sums read and written once
+    n_bytes = n * 3 * 8 + m * 5 * 8 + 2 * 2 * n * 8
+    t_ops, t_bytes = n * m * ops / F64_OPS, n_bytes / HBM_BPS
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"[16] K4 at the ring's tile {n} x {m}: {k4_ms:.3f} ms (median "
+          f"of {REPS}), {n * m / k4_ms * 1e3:.4e} pairs/s; twin "
+          f"{twin_ms:.3f} ms (median of 3); bound {bound_ms:.3f} ms "
+          f"({bound_by}: {ops} f64 ops a pair over {F64_OPS:.4g}/s), "
+          f"{bound_ms / k4_ms:.3f} of it ({card})", flush=True)
+    return {"name": "K4 huygens_f64 (exact-f64 Huygens tile of the ring)",
+            "route": "cuda", "source": "akbx_torch/csrc/huygens_f64_kernel.cu",
+            "replaces": None, "launches_phase_16": launches,
+            "max_abs_err": worst,
+            "ms": k4_ms, "plain_ms": twin_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "ops_per_pair": ops, "library_ms": None}
 
 
 def main():
@@ -2522,6 +2652,11 @@ def main():
         # --- 15. the multi-device and run-tooling slice ------------------
         launches15 = phase15(dev, smi, vec, base, tk, hk)
 
+    # --- 16. K4, the ring's exact-f64 tile -------------------------------
+    k4_entry = phase16(dev, smi)
+    # K4's main path is the ring: its launches in 15's one-rank ring
+    k4_entry["launches"] = launches15["K4"]
+
     kernels = [
         {"name": "K1 trace_deviation (bounce chain)", "route": "cuda",
          "source": "akbx_torch/csrc/trace_kernel.cu",
@@ -2549,8 +2684,9 @@ def main():
          "launches": w_launches, "max_abs_err": k3_err, **k3_t,
          "library_ms": None, "launches_phase_14": launches14["K3"],
          "launches_phase_15": launches15["K3"]},
+        k4_entry,
     ]
-    print(f"[15] wall time {time.perf_counter() - t_start:.1f} s",
+    print(f"[16] wall time {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

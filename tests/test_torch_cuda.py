@@ -1,4 +1,4 @@
-"""The CUDA kernels K1/K2/K3 and df32.cuh's two_prod on the card against
+"""The CUDA kernels K1-K4 and df32.cuh's two_prod on the card against
 their PyTorch twins (K1 and K2 on every mirror system's constants), the
 fast path and its gradient (Wolter III+I and KB) on the card against the
 same on the CPU, the figure and df32 routes on the card, and the Huygens
@@ -18,6 +18,7 @@ from akbx_torch import trace, wave
 from akbx_torch.core import precision
 from akbx_torch.kernels import df32_check
 from akbx_torch.kernels import huygens as hk
+from akbx_torch.kernels import huygens_f64 as k4
 from akbx_torch.kernels import trace_kernel as tk
 from akbx_torch.systems import (AlignParams, KBSpec, WOLTER_3_1_DEFAULT,
                                 WOLTER_3_3_ALT_DEFAULT,
@@ -458,3 +459,169 @@ def test_huygens_path_card_matches_cpu(dev):
             src, torch.tensor(tgt, device=d), 13.5e-9)).cpu())
     assert float((out[0] - out[1]).abs().max()) <= 1e-6 * float(
         out[1].abs().max())
+
+
+# --- K4, the exact-f64 Huygens tile of huygens_ring -------------------------
+
+# K4 vs its twin, of the field's scale.  Per pair both run the same f64
+# operations, so r, the reduced phase and 1/r agree bit for bit (the
+# double-word k r's lo word is an FMA in the kernel and Dekker's partial
+# products in the twin: the same exact pair); sin and cos may differ by an
+# ulp.  The rest is the order of the sums: the kernel adds each 512-source
+# split's terms one by one and then the splits, the twin contracts each
+# target chunk with matrix-vector products.  Either order rounds each of
+# the m additions at ~1e-16 of the running sum: at the ring's 16,520
+# sources ~1e-12 of the field, even where the terms cancel a hundredfold.
+K4_REL = 1e-9
+
+
+def _k4_inputs(dev, geometry, n, m, seed):
+    """Seeded f64 sources and targets at akbx's EUV distances, absolute
+    coordinates as the ring holds them: ``m1`` sources within 1 mm of the
+    point source and targets on a 4-cm mirror 146 m away; ``focus``
+    sources on a 4-cm M4 and targets on a +-1 um focal grid 0.1 m on."""
+    rng = np.random.default_rng(seed)
+    if geometry == "m1":
+        src = rng.normal(size=(3, m)) * 1e-3
+        tgt = (np.array([146.0, 0.03, 0.01])[:, None]
+               + rng.normal(size=(3, n)) * np.array([[0.02], [1e-3], [1e-3]]))
+    else:
+        src = (np.array([146.3, 0.01, 0.005])[:, None]
+               + rng.normal(size=(3, m)) * np.array([[0.02], [2e-4], [2e-4]]))
+        tgt = (np.array([146.4, 0.0, 0.0])[:, None]
+               + rng.uniform(-1e-6, 1e-6, size=(3, n)))
+    w = rng.normal(size=(2, m)) * 1e-8
+    t = [torch.tensor(x, dtype=torch.float64, device=dev)
+         for x in (tgt, src, w[0], w[1])]
+    return t[0], t[1], t[2], t[3], 2.0 * np.pi / 13.5e-9
+
+
+def _k4(ins):
+    n = ins[0].shape[1]
+    acc = torch.zeros((2, n), dtype=torch.float64, device=ins[0].device)
+    k4.huygens_f64(*ins, acc[0], acc[1])
+    torch.cuda.synchronize()
+    return acc
+
+
+def _k4_twin(ins):
+    n = ins[0].shape[1]
+    acc = torch.zeros((2, n), dtype=torch.float64, device=ins[0].device)
+    k4.huygens_f64_reference(*ins, acc[0], acc[1])
+    return acc
+
+
+@pytest.mark.parametrize("geometry", ["m1", "focus"])
+@pytest.mark.parametrize("n,m", [(1, 1), (255, 257), (256, 512), (257, 513),
+                                 (1000, 1537), (16520, 16520)])
+def test_k4_matches_twin(dev, geometry, n, m):
+    """K4 against its twin on the card at ragged target and source counts
+    (not multiples of the block's 256 targets, the 256-source tile or the
+    512-source split) and at the ring's tile, within K4_REL of the field;
+    one launch a call."""
+    ins = _k4_inputs(dev, geometry, n, m, n + m)
+    before = k4.huygens_f64.launches
+    got = _k4(ins)
+    assert k4.huygens_f64.launches == before + 1
+    want = _k4_twin(ins)
+    assert torch.isfinite(got).all()
+    scale = float(torch.complex(want[0], want[1]).abs().max())
+    err = float(torch.complex(got[0] - want[0], got[1] - want[1]).abs().max())
+    assert err <= K4_REL * scale, (err, scale)
+
+
+@pytest.mark.parametrize("m", [9, 510, 512, 1030])
+def test_k4_zero_weight_padding_adds_exactly_nothing(dev, m):
+    """The ring pads each source block with zero-weight sources at the
+    origin: with and without 7 of them (inside a split, crossing into a
+    new one) the sums are the same bits."""
+    tgt, src, w_re, w_im, k = _k4_inputs(dev, "m1", 700, m, m)
+    pad = torch.zeros(7, dtype=torch.float64, device=dev)
+    padded = (tgt, torch.cat([src, torch.zeros((3, 7), dtype=torch.float64,
+                                               device=dev)], dim=1),
+              torch.cat([w_re, pad]), torch.cat([w_im, pad]), k)
+    assert torch.equal(_k4((tgt, src, w_re, w_im, k)), _k4(padded))
+
+
+def test_k4_repeats_bit_for_bit_in_any_target_chunking(dev, monkeypatch):
+    """No atomics: two runs give the same bits, and so does a launch per
+    chunk of targets when the scratch cap forces chunks (one launch each)."""
+    ins = _k4_inputs(dev, "focus", 3000, 2100, 7)
+    a, b = _k4(ins), _k4(ins)
+    assert torch.equal(a.view(torch.int64), b.view(torch.int64))
+    splits = -(-2100 // k4.SPLIT)
+    monkeypatch.setattr(k4, "SCRATCH_BYTES", 2 * splits * 8 * 1100)
+    before = k4.huygens_f64.launches
+    c = _k4(ins)
+    assert k4.huygens_f64.launches == before + 3   # 1100, 1100, 800
+    assert torch.equal(a.view(torch.int64), c.view(torch.int64))
+
+
+def test_k4_counts_checks_and_never_runs_the_twin(dev, monkeypatch):
+    """A launch a call with targets and sources, none without; CUDA
+    tensors never reach the twin; f32, mixed devices and non-contiguous
+    inputs raise."""
+    def boom(*a, **kw):
+        raise AssertionError("the twin ran for CUDA tensors")
+
+    monkeypatch.setattr(k4, "huygens_f64_reference", boom)
+    tgt, src, w_re, w_im, k = _k4_inputs(dev, "m1", 10, 20, 0)
+    before = k4.huygens_f64.launches
+    _k4((tgt, src, w_re, w_im, k))
+    _k4((tgt[:, :0].contiguous(), src, w_re, w_im, k))
+    _k4((tgt, src[:, :0].contiguous(), w_re[:0], w_im[:0], k))
+    assert k4.huygens_f64.launches == before + 1
+    acc = torch.zeros((2, 10), dtype=torch.float64, device=dev)
+    for bad in ((tgt.float(), src, w_re, w_im),
+                (tgt, src.cpu(), w_re, w_im),
+                (tgt, src, w_re.float(), w_im),
+                (torch.zeros((20, 3), dtype=torch.float64,
+                             device=dev).t()[:, ::2], src, w_re, w_im)):
+        with pytest.raises(ValueError):
+            k4.huygens_f64(*bad, k, acc[0], acc[1])
+
+
+def test_huygens_ring_on_the_card_matches_the_twin_path(dev, tmp_path):
+    """A one-rank huygens_ring on an NCCL group: K4 once, against the twin
+    on the same targets and sources, within K4_REL of the field.  An input
+    that requires grad raises under grad mode and launches nothing."""
+    import torch.distributed as dist
+
+    from akbx_torch.parallel import sharding as sh
+
+    ins = _k4_inputs(dev, "focus", 4100, 3000, 11)
+    tgt, src, w_re, w_im, _ = ins
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        mesh = sh.ray_mesh(device_type="cuda")
+        before = k4.huygens_f64.launches
+        got = sh.huygens_ring(src, w_re, w_im, tgt, 13.5e-9, mesh)
+        torch.cuda.synchronize()
+        assert k4.huygens_f64.launches == before + 1
+        with pytest.raises(ValueError, match="gradient"):
+            sh.huygens_ring(src, w_re.clone().requires_grad_(True), w_im,
+                            tgt, 13.5e-9, mesh)
+        assert k4.huygens_f64.launches == before + 1
+    finally:
+        dist.destroy_process_group()
+    want = _k4_twin(ins)
+    g, w = torch.complex(*got), torch.complex(want[0], want[1])
+    assert float((g - w).abs().max()) <= K4_REL * float(w.abs().max())
+
+
+@pytest.mark.parametrize("inp", [0, 1, 2, 3])
+def test_k4_refuses_inputs_that_require_grad(dev, inp):
+    """K4 records no gradient: an input that requires grad raises under
+    grad mode and launches nothing; under no_grad the call runs."""
+    ins = list(_k4_inputs(dev, "m1", 40, 30, 3))
+    ins[inp] = ins[inp].clone().requires_grad_(True)
+    acc = torch.zeros((2, 40), dtype=torch.float64, device=dev)
+    before = k4.huygens_f64.launches
+    with pytest.raises(ValueError, match="gradient"):
+        k4.huygens_f64(*ins, acc[0], acc[1])
+    assert k4.huygens_f64.launches == before
+    assert torch.equal(acc, torch.zeros_like(acc))
+    with torch.no_grad():
+        k4.huygens_f64(*ins, acc[0], acc[1])
+    assert k4.huygens_f64.launches == before + 1

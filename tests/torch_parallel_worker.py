@@ -95,14 +95,14 @@ def task_huygens(mesh, inp):
     for key in ("ring", "ring_ragged"):
         d = {k: _t(v) for k, v in inp[key].items()}
         re, im = sh.huygens_ring(d["src"], d["w_re"], d["w_im"], d["tgt"],
-                                 WAVELENGTH, mesh, chunk=16)
+                                 WAVELENGTH, mesh)
         out[key] = (to_numpy(sh.gather_rays(re, mesh)),
                     to_numpy(sh.gather_rays(im, mesh)), re.shape[0])
         # the same call with the spans on: its spans, and its fields
         spans.enable("cpu")
         try:
             re2, im2 = sh.huygens_ring(d["src"], d["w_re"], d["w_im"],
-                                       d["tgt"], WAVELENGTH, mesh, chunk=16)
+                                       d["tgt"], WAVELENGTH, mesh)
         finally:
             spans.disable()
         recs = spans.take()
