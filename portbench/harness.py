@@ -4,7 +4,9 @@ Everything that belongs to one configuration, traffic mix, cell or
 metric is a file of its own, found by the name ``BENCHMARK.json`` gives:
 
 * ``configs/<config>.json``: the configuration as it is run (the
-  ``configs`` entry's ``file``);
+  ``configs`` entry's ``file``); its ``system`` names the program's
+  builder and, under ``reference`` and ``reference_trace``, the modules
+  of ``reference/`` that hold its plain reference (``resolve.py``);
 * ``traffic/<traffic>.json``: the traffic mix, a file of parameters whose
   ``kind`` names the general generator ``kinds/<kind>.py`` that reads it
   (set-up from the seed, the step, the check against the reference);
@@ -12,13 +14,14 @@ metric is a file of its own, found by the name ``BENCHMARK.json`` gives:
 * ``metrics/<metric>.py``: a reader ``read(rec)`` of one metric, which
   returns a number or ``None`` where it finds nothing to read.
 
-A run: look for the cards; set up the kind (inputs from the seed, the
-program's state, every shape the cell uses warmed up), which is
-``setup_s``; run steps until ``seconds`` have passed, the window; read
-the peak memory; with ``trace`` run a short profiled window after it;
-free the program's state; check its outputs against the plain reference
-(``portbench/reference``); check that no JAX module was loaded; print
-the result as the last line of standard output.
+A run: look for the cards; check that every name the configuration gives
+resolves in the program and in its reference; set up the kind (inputs
+from the seed, the program's state, every shape the cell uses warmed
+up), which is ``setup_s``; run steps until ``seconds`` have passed, the
+window; read the peak memory; with ``trace`` run a short profiled window
+after it; free the program's state; check its outputs against the
+configuration's plain reference; check that no JAX module was loaded;
+print the result as the last line of standard output.
 """
 
 from __future__ import annotations
@@ -37,6 +40,8 @@ import tempfile
 import time
 import types
 from collections import defaultdict
+
+from portbench.resolve import unresolved
 
 BANNED = ("jax", "jaxlib", "flax", "akbx")
 PROFILE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -514,6 +519,12 @@ def main(root: str, workload: str, seed: int, seconds: float, trace: bool,
         importlib.import_module("akbx_torch")
     except ImportError as e:
         say(f"portbench: the program akbx_torch is missing ({e}); no result")
+        return 2
+    missing = unresolved(cell.config)
+    for line in missing:
+        say(f"portbench: configuration {cell.config['name']}: {line}; "
+            "no result")
+    if missing:
         return 2
     rank, device, mesh, children = start_world(
         os.path.join(root, "portbench", "run.py"),

@@ -31,7 +31,9 @@ The traffic file's keys: ``fan``, ``sigma``, ``vectors`` (how many are
 drawn; the window cycles through them), ``precision``, ``checked_steps``,
 ``profile_steps``.  The configuration's ``system`` names the spec class,
 its factory and arguments, and the system builder, by the same names in
-``akbx_torch.systems`` and in ``portbench.reference.systems``, and may
+``akbx_torch.systems`` and in the reference's systems module
+(``portbench.resolve``: ``reference`` and ``reference_trace`` name the
+configuration's modules of ``portbench/reference``), and may
 name in ``lower_options`` the builder's options of its lower path.
 """
 
@@ -43,6 +45,7 @@ import numpy as np
 import torch
 
 from portbench import roofline as rf
+from portbench.resolve import find, reference_modules
 
 F64 = torch.float64
 
@@ -51,13 +54,13 @@ def _system(module, cfg, device, **options):
     """The builder ``v -> OpticalSystem`` of the configuration in
     ``module`` (the program's ``systems`` or the reference's), with the
     builder's keyword ``options``."""
-    spec_cls = getattr(module, cfg["spec"])
     args = cfg["args"]
     if cfg.get("factory"):
-        spec = getattr(spec_cls, cfg["factory"])(**args, device=device)
+        spec = find(module, cfg["spec"] + "." + cfg["factory"])(
+            **args, device=device)
     else:
-        spec = spec_cls(**args)
-    builder = getattr(module, cfg["builder"])
+        spec = find(module, cfg["spec"])(**args)
+    builder = find(module, cfg["builder"])
     return lambda v: builder(spec, module.AlignParams.from_vector(v),
                              **options)
 
@@ -222,9 +225,7 @@ def reference_step(cfg, v, n: int, device, dtype=F64):
     """The plain reference's step at ``v``: the system placed in f64, then
     the trace and loss in ``dtype``; returns (loss, gradient, result,
     system)."""
-    from portbench.reference import systems as ref_systems
-    from portbench.reference import trace as ref_trace
-
+    ref_systems, ref_trace = reference_modules(cfg)
     build = _system(ref_systems, cfg, device)
     v = v.detach().clone().to(device).requires_grad_(True)
     system = build(v)
@@ -247,11 +248,9 @@ def cast_system(system, dtype):
                            source=cast(system.source))
 
 
-def _field_numbers(fields, ref, ref_system, n: int) -> dict:
+def _field_numbers(fields, ref, ref_system, n: int, ref_trace) -> dict:
     """The kept step's fields against the reference's result and placed
-    system."""
-    from portbench.reference import trace as ref_trace
-
+    system (``ref_trace``: the reference's trace module)."""
     v = ref.valid
     det = fields["detcenter"].to(v.device).double()
     w_ref = ref_trace.demeaned_opl(ref).detach().double()
@@ -299,6 +298,7 @@ def compare(st, seed: int, produce) -> dict:
     gradient and kept fields (or None) of step ``i`` at vector ``v``, as
     the program gave them or as a stand-in computes them."""
     cfg, dev = st.ctx.config["system"], st.ctx.device
+    ref_trace = reference_modules(cfg)[1]
     out = {"loss_rel": 0.0, "grad_rel": 0.0, "detcenter_m": 0.0,
            "w32_m": 0.0, "ddet32_m": 0.0, "valid_diff": 0.0,
            "coeffs_rel": 0.0}
@@ -314,8 +314,8 @@ def compare(st, seed: int, produce) -> dict:
         out["grad_rel"] = _worse(out["grad_rel"],
                                  _grad_rel(grad.double(), ref_grad))
         if i in kept and fields is not None:
-            for k, x in _field_numbers(fields, ref, ref_system,
-                                       st.n).items():
+            for k, x in _field_numbers(fields, ref, ref_system, st.n,
+                                       ref_trace).items():
                 out[k] = _worse(out[k], x)
         del ref
     return out
@@ -361,11 +361,10 @@ def control_reference(st, seed: int, dtype=torch.float32) -> dict:
     """The check's numbers with the reference in ``dtype`` put in the
     program's place."""
     cfg, dev = st.ctx.config["system"], st.ctx.device
+    ref_trace = reference_modules(cfg)[1]
 
     def produce(i, v):
         loss, grad, res, system = reference_step(cfg, v, st.n, dev, dtype)
-        from portbench.reference import trace as ref_trace
-
         chief = (st.n ** 2) // 2
         det = res.detcenter.detach()
         fields = {"detcenter": det, "valid": res.valid,

@@ -42,13 +42,14 @@ FROM = (-1, 0, 1, 2, 3, 3)
 
 def handoff(cfg, vec, t, device):
     """One handoff of the configuration at the 26-vector ``vec``, made by
-    the plain reference: (source (3,), [points (3, N) of M1..M4, the focal
-    grid, the defocused grid], [ds of M1..M4])."""
+    its plain reference (``portbench.resolve``): (source (3,),
+    [points (3, N) of M1..M4, the focal grid, the defocused grid], [ds of
+    M1..M4])."""
     from portbench.kinds.align import _system
     from portbench.reference import huygens as ref_huygens
-    from portbench.reference import systems as ref_systems
-    from portbench.reference import trace as ref_trace
+    from portbench.resolve import reference_modules
 
+    ref_systems, ref_trace = reference_modules(cfg)
     side = int(t["side"])
     v = torch.as_tensor(vec, dtype=F64, device=device)
     system = _system(ref_systems, cfg, device)(v)

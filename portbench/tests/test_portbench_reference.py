@@ -58,7 +58,7 @@ def test_program_step_near_the_reference(bench, config):
     assert float(abs(loss.detach().double() - ref_loss) / ref_loss) < 1e-6
     assert align._grad_rel(v.grad, ref_grad) < 1e-5
     numbers = align._field_numbers(align._fields(res, system), ref,
-                                   ref_system, N)
+                                   ref_system, N, ref_trace)
     assert numbers["valid_diff"] == 0
     assert numbers["detcenter_m"] < 5e-9 and numbers["w32_m"] < 1e-9
     assert numbers["coeffs_rel"] < 1e-14
