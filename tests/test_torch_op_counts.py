@@ -11,16 +11,16 @@ import chip_smoke
 from akbx_torch import trace
 from akbx_torch.kernels import huygens as hk
 from akbx_torch.kernels import trace_kernel as tk
-from akbx_torch.systems import AlignParams, WOLTER_3_1_DEFAULT, build_wolter_3_1
+from akbx_torch.systems import (AlignParams, WOLTER_3_1_DEFAULT,
+                                WOLTER_3_3_TANDEM_DEFAULT, build_wolter_3_1,
+                                build_wolter_3_3_tandem)
 
 torch.set_num_threads(2)
 
 
-@pytest.fixture(scope="module")
-def trace_inputs():
-    """K1's and K2's arguments for one ray of a 5x5 fan (K2: two planes)."""
-    dev = torch.device("cpu")
-    s = build_wolter_3_1(WOLTER_3_1_DEFAULT, AlignParams.zeros(dev))
+def k1_inputs(s):
+    """K1's arguments for one ray of a 5x5 fan through the placed system
+    ``s``, and the chief's f64 outgoing direction after each mirror."""
     rays = trace.ray_fan(trace.fan_angles(s.fan_h, 5),
                          trace.fan_angles(s.fan_v, 5))
     n = rays.shape[1]
@@ -28,8 +28,16 @@ def trace_inputs():
     chief_d0, chief_p0, c64 = trace._fast_scalars(s, rays, src, n // 2)
     (Ms, bvecs, Ds, Dns, Ts, A, Bp, rho, gC, gA, br, _) = c64
     table = tk.pack_consts(Ms, gC, gA, Ds, Dns, Ts, A, Bp, rho, br, bvecs)
-    k1 = (table, (src - chief_p0)[:, 3:4].contiguous(),
-          (rays - chief_d0)[:, 3:4].contiguous(), 4)
+    return (table, (src - chief_p0)[:, 3:4].contiguous(),
+            (rays - chief_d0)[:, 3:4].contiguous(), len(s.mirrors)), Dns
+
+
+@pytest.fixture(scope="module")
+def trace_inputs():
+    """K1's and K2's arguments for one ray of a 5x5 fan (K2: two planes)."""
+    dev = torch.device("cpu")
+    s = build_wolter_3_1(WOLTER_3_1_DEFAULT, AlignParams.zeros(dev))
+    k1, Dns = k1_inputs(s)
     t1 = tk.trace_deviation_reference(*k1)
     R = torch.eye(3, dtype=torch.float64)
     planes = torch.cat([
@@ -52,6 +60,17 @@ def test_operations_per_ray_or_pair(trace_inputs, kernel, ops, two_prods):
     else:
         fn, args = trace_inputs[kernel]
     assert chip_smoke.count_ops(fn, *args) == (ops, two_prods)
+
+
+def test_k1_operations_per_ray_on_the_tandem():
+    """K1 on the Wolter III+III tandem's mirrors counts what it counts on
+    III+I's: 2,142 operations a mirror and 4 more a ray, the frozen count
+    that ``k1_roofline.align`` divides by at four mirrors."""
+    s = build_wolter_3_3_tandem(WOLTER_3_3_TANDEM_DEFAULT,
+                                AlignParams.zeros(torch.device("cpu")))
+    k1, _ = k1_inputs(s)
+    assert chip_smoke.count_ops(tk.trace_deviation_reference, *k1) == (
+        4 * 2142 + 4, 4 * 77)
 
 
 def test_counting_leaves_two_prod_in_place():
