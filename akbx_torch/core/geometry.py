@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from akbx_torch.utils import linspace
+from akbx_torch.utils import constant, linspace
 
 # (4, 4) gather of the 10-vector into the symmetric homogeneous matrix,
 # and the factor of each entry (off-diagonal entries carry half a coeff)
@@ -25,10 +25,6 @@ QUADRIC_HALF = ((1.0, 0.5, 0.5, 0.5), (0.5, 1.0, 0.5, 0.5),
 COEFF_ROWS = (0, 1, 2, 0, 0, 1, 0, 1, 2, 3)
 COEFF_COLS = (0, 1, 2, 1, 2, 2, 3, 3, 3, 3)
 COEFF_SCALE = (1.0, 1.0, 1.0, 2.0, 2.0, 2.0, 2.0, 2.0, 2.0, 1.0)
-
-
-def _t(values, like: torch.Tensor, dtype=None) -> torch.Tensor:
-    return torch.tensor(values, dtype=dtype or like.dtype, device=like.device)
 
 
 def normalize(v: torch.Tensor, dim: int = 0, eps: float = 0.0) -> torch.Tensor:
@@ -51,13 +47,15 @@ def quadric_eval(coeffs: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
 
 def quadric_matrix(coeffs: torch.Tensor) -> torch.Tensor:
     """(..., 10) -> symmetric homogeneous (..., 4, 4) with [x,1]^T M [x,1] = S."""
-    idx = _t(QUADRIC_IDX, coeffs, torch.long)
-    return coeffs[..., idx] * _t(QUADRIC_HALF, coeffs)
+    idx = constant(QUADRIC_IDX, coeffs, torch.long)
+    return coeffs[..., idx] * constant(QUADRIC_HALF, coeffs)
 
 
 def matrix_to_coeffs(M: torch.Tensor) -> torch.Tensor:
     """(..., 4, 4) -> (..., 10), the inverse of :func:`quadric_matrix`."""
-    return M[..., COEFF_ROWS, COEFF_COLS] * _t(COEFF_SCALE, M)
+    rows = constant(COEFF_ROWS, M, torch.long)
+    cols = constant(COEFF_COLS, M, torch.long)
+    return M[..., rows, cols] * constant(COEFF_SCALE, M)
 
 
 def homogeneous(R3: torch.Tensor, t: torch.Tensor,
@@ -65,13 +63,14 @@ def homogeneous(R3: torch.Tensor, t: torch.Tensor,
     """(..., 4, 4) homogeneous matrix from a (..., 3, 3) block and a (..., 3)
     translation column (``corner`` 0 gives the lo word of a DF matrix)."""
     top = torch.cat([R3, t[..., :, None]], dim=-1)
-    bottom = _t((0.0, 0.0, 0.0, corner), R3).expand(*R3.shape[:-2], 1, 4)
+    bottom = constant((0.0, 0.0, 0.0, corner), R3).expand(
+        *R3.shape[:-2], 1, 4)
     return torch.cat([top, bottom], dim=-2)
 
 
 def _eye3(like: torch.Tensor, batch=()) -> torch.Tensor:
-    return torch.eye(3, dtype=like.dtype, device=like.device).expand(
-        *batch, 3, 3)
+    return constant(((1.0, 0.0, 0.0), (0.0, 1.0, 0.0), (0.0, 0.0, 1.0)),
+                    like).expand(*batch, 3, 3)
 
 
 def _transform_matrix(M: torch.Tensor, P: torch.Tensor) -> torch.Tensor:
@@ -139,20 +138,20 @@ def rotate_about_axis(coeffs, axis, theta, center):
 
 def rotate_x(coeffs, theta, center):
     """Rotate the surface about the global x axis through ``center``."""
-    return rotate_about_axis(coeffs, _t((1.0, 0.0, 0.0), coeffs), theta,
-                             center)[0]
+    return rotate_about_axis(coeffs, constant((1.0, 0.0, 0.0), coeffs),
+                             theta, center)[0]
 
 
 def rotate_y(coeffs, theta, center):
     """Rotate the surface about the global y axis through ``center``."""
-    return rotate_about_axis(coeffs, _t((0.0, 1.0, 0.0), coeffs), theta,
-                             center)[0]
+    return rotate_about_axis(coeffs, constant((0.0, 1.0, 0.0), coeffs),
+                             theta, center)[0]
 
 
 def rotate_z(coeffs, theta, center):
     """Rotate the surface about the global z axis through ``center``."""
-    return rotate_about_axis(coeffs, _t((0.0, 0.0, 1.0), coeffs), theta,
-                             center)[0]
+    return rotate_about_axis(coeffs, constant((0.0, 0.0, 1.0), coeffs),
+                             theta, center)[0]
 
 
 def solve_quadratic(A, B, C):
@@ -161,7 +160,7 @@ def solve_quadratic(A, B, C):
     D = B * B - 4 * A * C
     valid = D > 0
     sqrtD = torch.sqrt(torch.where(valid, D, 0.0))
-    sgn = torch.where(B >= 0, 1.0, -1.0).to(B.dtype)
+    sgn = torch.where(B >= 0, constant(1.0, B), constant(-1.0, B))
     qq = -0.5 * (B + sgn * sqrtD)
     safe_A = torch.where(A != 0, A, 1.0)
     safe_q = torch.where(qq != 0, qq, 1.0)
@@ -196,7 +195,7 @@ def intersect(coeffs: torch.Tensor, rays: torch.Tensor, origins: torch.Tensor,
 
     t_plus, t_minus, valid = solve_quadratic(A, B, C)
     if not isinstance(branch, torch.Tensor):
-        branch = torch.tensor(float(branch), dtype=A.dtype, device=A.device)
+        branch = constant(float(branch), A)
     t = torch.where(branch >= 0, t_plus, t_minus)
 
     # degenerate A == 0: the linear equation B t + C = 0
@@ -250,8 +249,8 @@ def detector_plane(x_position: torch.Tensor) -> torch.Tensor:
 
 def rotate_vectors_yz(vectors: torch.Tensor, theta_y, theta_z) -> torch.Tensor:
     """Apply R_y(theta_y) @ R_z(theta_z) (z first, then y) to (3, N)."""
-    ey = _t((0.0, 1.0, 0.0), vectors)
-    ez = _t((0.0, 0.0, 1.0), vectors)
+    ey = constant((0.0, 1.0, 0.0), vectors)
+    ez = constant((0.0, 0.0, 1.0), vectors)
     return rodrigues(ey, theta_y) @ (rodrigues(ez, theta_z) @ vectors)
 
 
@@ -293,7 +292,8 @@ def rotate_points(points: torch.Tensor, R: torch.Tensor,
 def _point_rotate(points, theta, center, axis):
     theta = torch.as_tensor(theta, dtype=points.dtype, device=points.device)
     center = torch.as_tensor(center, dtype=points.dtype, device=points.device)
-    return rotate_points(points, rodrigues(_t(axis, points), -theta), center)
+    return rotate_points(points, rodrigues(constant(axis, points), -theta),
+                         center)
 
 
 def point_rotate_x(points, theta, center):
@@ -326,5 +326,5 @@ def grid_on_mirror(coeffs: torch.Tensor, corners: torch.Tensor,
         + uu * vv * p3[:, None, None]
         + (1 - uu) * vv * p4[:, None, None]
     ).reshape(3, -1)
-    ray = _t((-1.0, 0.0, 0.0), corners)[:, None].expand(w.shape)
+    ray = constant((-1.0, 0.0, 0.0), corners)[:, None].expand(w.shape)
     return intersect(coeffs, ray, w)[0]

@@ -31,6 +31,8 @@ from typing import NamedTuple
 
 import torch
 
+from akbx_torch.utils import constant
+
 # Dekker split constant 2^s + 1, s = ceil(mantissa_bits / 2)
 _SPLIT_C = {torch.float32: 4097.0, torch.float64: 134217729.0}
 
@@ -98,8 +100,11 @@ def df_from(a) -> DF:
 
 def _like(y, x):
     """``y`` as a tensor of ``x``'s dtype and device (a Python float would
-    otherwise be rounded to the wrong precision inside the EFTs)."""
-    return torch.as_tensor(y, dtype=x.dtype, device=x.device)
+    otherwise be rounded to the wrong precision inside the EFTs; a number
+    from the shared constants of :func:`akbx_torch.utils.constant`)."""
+    if isinstance(y, torch.Tensor):
+        return torch.as_tensor(y, dtype=x.dtype, device=x.device)
+    return constant(float(y), x)
 
 
 def df_add(x: DF, y: DF) -> DF:

@@ -188,14 +188,20 @@ def ref_shift_buggy(coeffs: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return ref_shift_z_buggy(coeffs, t[..., 2])
 
 
-def ref_rotate_about_axis_buggy(coeffs, axis, theta, center):
-    """The reference's ``rotate_general_axis``: buggy shift to the origin,
-    rotation about it, buggy shift back.  Returns (coeffs, R) as
-    :func:`akbx_torch.core.geometry.rotate_about_axis`."""
+def ref_transform_buggy(coeffs, R, center):
+    """The reference's rotation by ``R`` about ``center``: buggy shift to
+    the origin, rotation about it, buggy shift back."""
     coeffs = ref_shift_buggy(coeffs, -center)
-    R = geo.rodrigues(axis, theta)
     coeffs = geo.transform_quadric(coeffs, R, torch.zeros_like(center))
-    return ref_shift_buggy(coeffs, center), R
+    return ref_shift_buggy(coeffs, center)
+
+
+def ref_rotate_about_axis_buggy(coeffs, axis, theta, center):
+    """The reference's ``rotate_general_axis``: :func:`ref_transform_buggy`
+    by the rotation about ``axis``.  Returns (coeffs, R) as
+    :func:`akbx_torch.core.geometry.rotate_about_axis`."""
+    R = geo.rodrigues(axis, theta)
+    return ref_transform_buggy(coeffs, R, center), R
 
 
 def wolter_iii_angles_df(a_hyp, b_hyp, a_ell, b_ell, theta1: torch.Tensor):

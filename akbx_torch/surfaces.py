@@ -32,15 +32,21 @@ class Mirror(NamedTuple):
 
 def make_mirror(coeffs: torch.Tensor, branch=+1.0, center=None, axes=None,
                 fig_coeffs=None, uv_center=None, uv_half=None) -> Mirror:
+    """A mirror on ``coeffs``' device; the defaults, and a number given
+    for a field, are filled there, with no copy from host memory."""
     dev = coeffs.device
 
-    def f64(x, default):
-        x = default if x is None else x
+    def f64(x, shape=(), fill=0.0):
+        if x is None:
+            return torch.full(shape, fill, dtype=F64, device=dev)
+        if isinstance(x, (int, float)):
+            return torch.full((), float(x), dtype=F64, device=dev)
         return torch.as_tensor(x, dtype=F64, device=dev)
 
-    return Mirror(coeffs.to(F64), f64(branch, None), f64(center, [0.0] * 3),
-                  f64(axes, torch.eye(3)), f64(fig_coeffs, [[0.0]]),
-                  f64(uv_center, [0.0] * 2), f64(uv_half, [1.0] * 2))
+    eye = torch.eye(3, dtype=F64, device=dev) if axes is None else f64(axes)
+    return Mirror(coeffs.to(F64), f64(branch), f64(center, (3,)), eye,
+                  f64(fig_coeffs, (1, 1)), f64(uv_center, (2,)),
+                  f64(uv_half, (2,), 1.0))
 
 
 def _conic(a, b, plane: str, sign: float, device) -> torch.Tensor:

@@ -22,12 +22,13 @@ each mirror's figure-error footprint from a traced probe fan.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import NamedTuple
 
 import torch
 
-from akbx_torch import design, device_of, spans
+from akbx_torch import design, device_of, graphs, spans
 from akbx_torch.core import geometry as geo
 from akbx_torch.core import quadric_df as qdf
 from akbx_torch.surfaces import (ellipse_coeffs, hyperbola_coeffs,
@@ -69,13 +70,16 @@ class _PlacementOps:
         return (qdf.shift_x(coeffs, s) if self.precise
                 else geo.shift_x(coeffs, s))
 
-    def rotate_about_axis(self, coeffs, axis, theta, center):
+    def transform(self, coeffs, R, center):
+        """Rotate the surface by ``R`` about ``center``."""
         if self.bug_compat:
-            return qdf.ref_rotate_about_axis_buggy(coeffs, axis, theta,
-                                                   center)
-        return (qdf.rotate_about_axis(coeffs, axis, theta, center)
-                if self.precise
-                else geo.rotate_about_axis(coeffs, axis, theta, center))
+            return qdf.ref_transform_buggy(coeffs, R, center)
+        return (qdf.transform(coeffs, R, center) if self.precise
+                else geo.transform_quadric(coeffs, R, center))
+
+    def rotate_about_axis(self, coeffs, axis, theta, center):
+        R = geo.rodrigues(axis, theta)
+        return self.transform(coeffs, R, center), R
 
 
 _PLAIN = _PlacementOps(False)
@@ -210,30 +214,59 @@ def _apply_align_local(coeffs, axes, six, center, ops=_PLAIN):
     return ops.shift(coeffs, dx * ax_x + dy * ax_y + dz * ax_z)
 
 
-@spans.spanned("systems.build")
-def build_wolter_3_1(spec: AKBSpec, params: AlignParams,
-                     source_shift=(0.0, 0.0, 0.0),
-                     unit_coupled: bool | str = False,
-                     fan_centering: str = "theta1",
-                     precise: bool = True,
-                     ref_shift_z_bug: bool = False) -> OpticalSystem:
-    """Place the four mirrors of a Wolter III+I AKB system on the device
-    of ``params``.
+class _Layout31(NamedTuple):
+    """What a Wolter III+I build computes without reading the 26-vector,
+    made once per (spec, source shift, fan centering, ``precise``,
+    ``ref_shift_z_bug``, device) by :func:`_layout_3_1`."""
 
-    Mirror order: hyp_V -> ell_V -> ell_H -> hyp_H (hyp_H intersects on
-    the negative root branch).  ``unit_coupled``: ``False`` rotates each
-    mirror about its own chief-ray center; ``True`` rotates each Wolter
-    pair as a unit (the V hyperbola drives the V unit, ell_V gets relative
-    corrections); ``"h"`` couples only the H pair.  ``fan_centering``:
-    ``"theta1"`` subtracts the chief design angle from the fan, ``"mean"``
-    the fan midpoint.  ``precise`` runs the coefficient placement and the
-    layout angle chain in double-f64 (:mod:`akbx_torch.core.quadric_df`),
-    else in plain f64 (up to ~3e-8 rad of cancellation in omega_V).
-    ``ref_shift_z_bug`` reproduces the reference's dropped ``h -= f*s``
-    shift_z update (plain f64), for oracle parity only.
-    """
+    ops: _PlacementOps
+    spec: AKBSpec
+    base_q: torch.Tensor  # (4, 10) canonical conics, trace order
+    shift_v: tuple  # the V pair's x shifts, 0-d
+    R_base: torch.Tensor  # (4, 3, 3) axial rotations, about the origin
+    origin: torch.Tensor  # (4, 3) zeros
+    coeffs_v: tuple  # hyp_V, ell_V placed, before misalignment
+    R_h: torch.Tensor  # (2, 3, 3) the H pair's rotation by omega_V
+    center_ell_v: torch.Tensor  # (3, 3) the chief bundle on ell_V
+    bufreflect2: torch.Tensor  # (3, 3) the bundle leaving ell_V
+    valid_v: torch.Tensor  # the part of ``valid`` the V pair decides
+    axes: tuple  # the four mirrors' frames (3, 3)
+    mean_c: tuple  # hyp_V's and ell_V's chief centers (3,)
+    s2f_middle: torch.Tensor
+    fan_h: torch.Tensor
+    fan_v: torch.Tensor
+    source: torch.Tensor
+    graphs: dict  # the placement's CUDA graphs (akbx_torch.graphs)
+
+
+_LAYOUTS: dict = {}
+
+
+def _layout_3_1(spec: AKBSpec, source_shift: tuple, fan_centering: str,
+                precise: bool, ref_shift_z_bug: bool, dev) -> _Layout31:
+    """The memoised layout of a III+I build; made eagerly, outside any
+    autograd graph, on first use."""
+    key = (spec, source_shift, fan_centering, precise, ref_shift_z_bug, dev)
+    lay = _LAYOUTS.get(key)
+    if lay is None:
+        with torch.inference_mode(False), torch.no_grad():
+            lay = _LAYOUTS[key] = _make_layout_3_1(*key)
+    return lay
+
+
+def _base_3_1(ops, spec, base_q, shift_v, R_base, origin, astig):
+    """The four canonical conics shifted along x (the H pair by the astig
+    shift more) and given their axial rotation, as one batch of 4."""
+    org_ell_h, org_hyp_h = spec.org_ell_h, spec.org_hyp_h
+    base_s = torch.stack([*shift_v, org_ell_h + astig,
+                          -org_hyp_h + 2 * org_ell_h + astig])
+    return ops.unbind(ops.transform(ops.shift_x(ops.lift(base_q), base_s),
+                                    R_base, origin))
+
+
+def _make_layout_3_1(spec, source_shift, fan_centering, precise,
+                     ref_shift_z_bug, dev) -> _Layout31:
     P = _PlacementOps(precise, bug_compat=ref_shift_z_bug)
-    dev = params.defocus.device
 
     def f64(x):
         return torch.as_tensor(x, dtype=F64, device=dev)
@@ -272,32 +305,25 @@ def build_wolter_3_1(spec: AKBSpec, params: AlignParams,
             spec.b_ell_v, org_ell_v, th)[3] for th in (th_v1, th_v2))
         omega_v = (t5_v1 + t5_v2 + th_v1 + th_v2) / 2
 
-    # --- mirrors 1-4: base placement as one batch of 4 ---
+    # --- mirrors 1-4: base placement as one batch of 4; the V pair's
+    # rows do not depend on the astig shift ---
     eye3 = torch.eye(3, dtype=F64, device=dev)
-    astig = params.astig_h
     base_q = torch.stack([
         hyperbola_coeffs(spec.a_hyp_v, spec.b_hyp_v, "xz", dev),
         ellipse_coeffs(spec.a_ell_v, spec.b_ell_v, "xz", dev),
         ellipse_coeffs(spec.a_ell_h, spec.b_ell_h, "xy", dev),
         hyperbola_coeffs(spec.a_hyp_h, spec.b_hyp_h, "xy", dev),
     ])
-    base_s = torch.stack([
-        f64(org_hyp_v),
-        f64(2 * org_hyp_v + org_ell_v),
-        org_ell_h + astig,
-        -org_hyp_h + 2 * org_ell_h + astig,
-    ])
-    base_axis = torch.stack([eye3[1], eye3[1], eye3[2], eye3[2]])
-    base_theta = f64([spec.theta1_v, spec.theta1_v,
-                      -spec.theta1_h, -spec.theta1_h])
-    q_base, R_base = P.rotate_about_axis(
-        P.shift_x(P.lift(base_q), base_s), base_axis, base_theta,
-        torch.zeros((4, 3), dtype=F64, device=dev))
-    coeffs_hyp_v, coeffs_ell_v, coeffs_ell_h_pre, coeffs_hyp_h_pre = \
-        P.unbind(q_base)
+    shift_v = (f64(org_hyp_v), f64(2 * org_hyp_v + org_ell_v))
+    R_base = geo.rodrigues(torch.stack([eye3[1], eye3[1], eye3[2], eye3[2]]),
+                           f64([spec.theta1_v, spec.theta1_v,
+                                -spec.theta1_h, -spec.theta1_h]))
+    origin = torch.zeros((4, 3), dtype=F64, device=dev)
+    coeffs_hyp_v, coeffs_ell_v, _, _ = _base_3_1(
+        P, spec, base_q, shift_v, R_base, origin, f64(0.0))
     ax1, ax2, ax3, ax4 = (R_base @ eye3.T).transpose(-1, -2).unbind(0)
 
-    # --- chief-ray pre-trace ---
+    # --- chief-ray pre-trace through the V pair ---
     theta_cntr_v = (th_v1 + th_v2) / 2
     one, zero = f64(1.0), f64(0.0)
     bufray = torch.stack([
@@ -316,102 +342,16 @@ def build_wolter_3_1(spec: AKBSpec, params: AlignParams,
                                           center_hyp_v)
     bufreflect2 = geo.reflect(
         bufreflect1, geo.surface_normal(P.f64(coeffs_ell_v), center_ell_v))
-    mean_center_ell_v = torch.mean(center_ell_v[:, 1:], dim=1)
 
-    # --- H pair: pre-omega intersect of ell_H ---
-    _, _, okb3 = geo.intersect(P.f64(coeffs_ell_h_pre), bufreflect2,
-                               center_ell_v)
-
-    # --- in-plane omega rotation of the H pair, as one batch of 2 ---
-    q_h, R_h = P.rotate_about_axis(
-        P.stack([coeffs_ell_h_pre, coeffs_hyp_h_pre]),
-        torch.stack([ax3[1], ax4[1]]), omega_v.expand(2),
-        mean_center_ell_v.expand(2, 3))
-    coeffs_ell_h, coeffs_hyp_h = P.unbind(q_h)
+    # --- the H pair's in-plane rotation by omega_V ---
+    R_h = geo.rodrigues(torch.stack([ax3[1], ax4[1]]), omega_v.expand(2))
     ax3 = (R_h[0] @ ax3.T).T
     ax4 = (R_h[1] @ ax4.T).T
 
-    center_ell_h, _, okb3b = geo.intersect(P.f64(coeffs_ell_h), bufreflect2,
-                                           center_ell_v)
-    bufreflect3 = geo.reflect(
-        bufreflect2, geo.surface_normal(P.f64(coeffs_ell_h), center_ell_h))
-
-    # --- mirror 4: pre-omega then placed (negative root branch) ---
-    _, _, okb4 = geo.intersect(P.f64(coeffs_hyp_h_pre), bufreflect3,
-                               center_ell_h, branch=-1)
-    center_hyp_h, _, okb4b = geo.intersect(P.f64(coeffs_hyp_h), bufreflect3,
-                                           center_ell_h, branch=-1)
-
-    # --- geometry sanity ---
-    no_conflict = (
-        (center_ell_v[0, 0] > center_hyp_v[0, 0])
-        & (center_ell_h[0, 0] > center_ell_v[0, 0])
-        & (center_hyp_h[0, 0] > center_ell_h[0, 0])
-    )
-    valid = (ok_v & ok_h & torch.all(okb1) & torch.all(okb2)
-             & torch.all(okb3) & torch.all(okb3b) & torch.all(okb4)
-             & torch.all(okb4b) & no_conflict)
-
-    # --- misalignment ---
+    valid_v = (ok_v & ok_h & torch.all(okb1) & torch.all(okb2)
+               & (center_ell_v[0, 0] > center_hyp_v[0, 0]))
     mean_c1 = torch.mean(center_hyp_v[:, 1:], dim=1)
     mean_c2 = torch.mean(center_ell_v[:, 1:], dim=1)
-    mean_c3 = torch.mean(center_ell_h[:, 1:], dim=1)
-    mean_c4 = torch.mean(center_hyp_h[:, 1:], dim=1)
-
-    def rot(coeffs, axis, theta, center):
-        return P.rotate_about_axis(coeffs, axis, theta, center)[0]
-
-    def decenter(coeffs, axes, six):
-        return P.shift(coeffs,
-                       six[3] * axes[0] + six[4] * axes[1] + six[5] * axes[2])
-
-    if unit_coupled:
-        # the H pair rotates together about the H-unit center
-        center_wolter_h = (mean_c3 + mean_c4) / 2
-        p3, r3, y3 = params.ell_h[0], params.ell_h[1], params.ell_h[2]
-        p4, r4, y4 = params.hyp_h[0], params.hyp_h[1], params.hyp_h[2]
-        coeffs_ell_h = rot(coeffs_ell_h, ax3[1], p3, center_wolter_h)
-        coeffs_ell_h = rot(coeffs_ell_h, ax3[2], y3, center_wolter_h)
-        coeffs_ell_h = rot(coeffs_ell_h, ax3[0], r3, center_wolter_h)
-        coeffs_hyp_h = rot(coeffs_hyp_h, ax4[1], p4, center_wolter_h)
-        coeffs_hyp_h = rot(coeffs_hyp_h, ax4[2], y4, center_wolter_h)
-        coeffs_hyp_h = rot(coeffs_hyp_h, ax4[0], r4, center_wolter_h)
-    if unit_coupled == "h":
-        # V mirrors independent; decenters per mirror
-        coeffs_ell_h = decenter(coeffs_ell_h, ax3, params.ell_h)
-        coeffs_hyp_h = decenter(coeffs_hyp_h, ax4, params.hyp_h)
-        coeffs_hyp_v = _apply_align_local(coeffs_hyp_v, ax1, params.hyp_v,
-                                          mean_c1, P)
-        coeffs_ell_v = _apply_align_local(coeffs_ell_v, ax2, params.ell_v,
-                                          mean_c2, P)
-    elif unit_coupled:
-        # the V hyperbola drives the V unit; ell_v gets relative corrections
-        center_wolter_v = (mean_c1 + mean_c2) / 2
-        p1, r1, y1 = params.hyp_v[0], params.hyp_v[1], params.hyp_v[2]
-        p2, r2, y2 = params.ell_v[0], params.ell_v[1], params.ell_v[2]
-        coeffs_hyp_v = rot(coeffs_hyp_v, ax1[2], y1, center_wolter_v)
-        coeffs_ell_v = rot(coeffs_ell_v, ax2[2], y1, center_wolter_v)
-        coeffs_hyp_v = rot(coeffs_hyp_v, ax1[1], p1, center_wolter_v)
-        coeffs_ell_v = rot(coeffs_ell_v, ax2[1], p1, center_wolter_v)
-        coeffs_hyp_v = rot(coeffs_hyp_v, ax1[0], r1, center_wolter_v)
-        coeffs_ell_v = rot(coeffs_ell_v, ax2[0], r1, center_wolter_v)
-        coeffs_ell_v = rot(coeffs_ell_v, ax2[2], y2 - y1, mean_c2)
-        coeffs_ell_v = rot(coeffs_ell_v, ax2[1], p2 - p1, mean_c2)
-        coeffs_ell_v = rot(coeffs_ell_v, ax2[0], r2 - r1, mean_c2)
-        coeffs_hyp_v = decenter(coeffs_hyp_v, ax1, params.hyp_v)
-        coeffs_hyp_h = decenter(coeffs_hyp_h, ax4, params.hyp_h)
-        coeffs_ell_v = decenter(coeffs_ell_v, ax2, params.ell_v)
-        coeffs_ell_h = decenter(coeffs_ell_h, ax3, params.ell_h)
-    else:
-        # independent per-mirror misalignment, as one batch of 4
-        q_mis = _apply_align_local(
-            P.stack([coeffs_hyp_v, coeffs_ell_v, coeffs_ell_h, coeffs_hyp_h]),
-            torch.stack([ax1, ax2, ax3, ax4]),
-            torch.stack([params.hyp_v, params.ell_v, params.ell_h,
-                         params.hyp_h]),
-            torch.stack([mean_c1, mean_c2, mean_c3, mean_c4]), P)
-        coeffs_hyp_v, coeffs_ell_v, coeffs_ell_h, coeffs_hyp_h = \
-            P.unbind(q_mis)
 
     # --- detector geometry ---
     s2f_H = -2 * org_hyp_h + 2 * org_ell_h
@@ -430,13 +370,164 @@ def build_wolter_3_1(spec: AKBSpec, params: AlignParams,
     fan_h = torch.stack([a1_h - off_h, a2_h - off_h])
     fan_v = torch.stack([a1_v - off_v, a2_v - off_v])
 
+    return _Layout31(P, spec, base_q, shift_v, R_base, origin,
+                     (coeffs_hyp_v, coeffs_ell_v), R_h, center_ell_v,
+                     bufreflect2, valid_v, (ax1, ax2, ax3, ax4),
+                     (mean_c1, mean_c2), s2f_middle, fan_h, fan_v, src_shift,
+                     {})
+
+
+def _place_3_1(lay: _Layout31, unit_coupled, astig, hyp_v, hyp_h, ell_v,
+               ell_h) -> tuple:
+    """The part of a III+I build that reads the 26-vector: the H pair's
+    astig shift and omega rotation, its chief pre-trace, ``valid`` and the
+    misalignment.  Capturable (:mod:`akbx_torch.graphs`): no tensor from
+    host data, no sync, no branch on a value.  Returns the four mirrors'
+    f64 coefficients, the H pair's chief centers and ``valid``."""
+    P = lay.ops
+    # the whole batch of 4, as the layout runs it for the V rows (unused
+    # here): every row comes out of the same kernels on the same shapes
+    _, _, coeffs_ell_h_pre, coeffs_hyp_h_pre = _base_3_1(
+        P, lay.spec, lay.base_q, lay.shift_v, lay.R_base, lay.origin, astig)
+    coeffs_hyp_v, coeffs_ell_v = lay.coeffs_v
+    ax1, ax2, ax3, ax4 = lay.axes
+    mean_c1, mean_c2 = lay.mean_c
+    center_ell_v, bufreflect2 = lay.center_ell_v, lay.bufreflect2
+
+    # --- H pair: pre-omega intersect of ell_H, the rotation by omega_V
+    # about ell_V's chief center as one batch of 2 ---
+    _, _, okb3 = geo.intersect(P.f64(coeffs_ell_h_pre), bufreflect2,
+                               center_ell_v)
+    q_h = P.transform(P.stack([coeffs_ell_h_pre, coeffs_hyp_h_pre]),
+                      lay.R_h, mean_c2.expand(2, 3))
+    coeffs_ell_h, coeffs_hyp_h = P.unbind(q_h)
+
+    center_ell_h, _, okb3b = geo.intersect(P.f64(coeffs_ell_h), bufreflect2,
+                                           center_ell_v)
+    bufreflect3 = geo.reflect(
+        bufreflect2, geo.surface_normal(P.f64(coeffs_ell_h), center_ell_h))
+
+    # --- mirror 4: pre-omega then placed (negative root branch) ---
+    _, _, okb4 = geo.intersect(P.f64(coeffs_hyp_h_pre), bufreflect3,
+                               center_ell_h, branch=-1)
+    center_hyp_h, _, okb4b = geo.intersect(P.f64(coeffs_hyp_h), bufreflect3,
+                                           center_ell_h, branch=-1)
+
+    # --- geometry sanity ---
+    valid = (lay.valid_v & torch.all(okb3) & torch.all(okb3b)
+             & torch.all(okb4) & torch.all(okb4b)
+             & (center_ell_h[0, 0] > center_ell_v[0, 0])
+             & (center_hyp_h[0, 0] > center_ell_h[0, 0]))
+
+    # --- misalignment ---
+    mean_c3 = torch.mean(center_ell_h[:, 1:], dim=1)
+    mean_c4 = torch.mean(center_hyp_h[:, 1:], dim=1)
+
+    def rot(coeffs, axis, theta, center):
+        return P.rotate_about_axis(coeffs, axis, theta, center)[0]
+
+    def decenter(coeffs, axes, six):
+        return P.shift(coeffs,
+                       six[3] * axes[0] + six[4] * axes[1] + six[5] * axes[2])
+
+    if unit_coupled:
+        # the H pair rotates together about the H-unit center
+        center_wolter_h = (mean_c3 + mean_c4) / 2
+        p3, r3, y3 = ell_h[0], ell_h[1], ell_h[2]
+        p4, r4, y4 = hyp_h[0], hyp_h[1], hyp_h[2]
+        coeffs_ell_h = rot(coeffs_ell_h, ax3[1], p3, center_wolter_h)
+        coeffs_ell_h = rot(coeffs_ell_h, ax3[2], y3, center_wolter_h)
+        coeffs_ell_h = rot(coeffs_ell_h, ax3[0], r3, center_wolter_h)
+        coeffs_hyp_h = rot(coeffs_hyp_h, ax4[1], p4, center_wolter_h)
+        coeffs_hyp_h = rot(coeffs_hyp_h, ax4[2], y4, center_wolter_h)
+        coeffs_hyp_h = rot(coeffs_hyp_h, ax4[0], r4, center_wolter_h)
+    if unit_coupled == "h":
+        # V mirrors independent; decenters per mirror
+        coeffs_ell_h = decenter(coeffs_ell_h, ax3, ell_h)
+        coeffs_hyp_h = decenter(coeffs_hyp_h, ax4, hyp_h)
+        coeffs_hyp_v = _apply_align_local(coeffs_hyp_v, ax1, hyp_v, mean_c1,
+                                          P)
+        coeffs_ell_v = _apply_align_local(coeffs_ell_v, ax2, ell_v, mean_c2,
+                                          P)
+    elif unit_coupled:
+        # the V hyperbola drives the V unit; ell_v gets relative corrections
+        center_wolter_v = (mean_c1 + mean_c2) / 2
+        p1, r1, y1 = hyp_v[0], hyp_v[1], hyp_v[2]
+        p2, r2, y2 = ell_v[0], ell_v[1], ell_v[2]
+        coeffs_hyp_v = rot(coeffs_hyp_v, ax1[2], y1, center_wolter_v)
+        coeffs_ell_v = rot(coeffs_ell_v, ax2[2], y1, center_wolter_v)
+        coeffs_hyp_v = rot(coeffs_hyp_v, ax1[1], p1, center_wolter_v)
+        coeffs_ell_v = rot(coeffs_ell_v, ax2[1], p1, center_wolter_v)
+        coeffs_hyp_v = rot(coeffs_hyp_v, ax1[0], r1, center_wolter_v)
+        coeffs_ell_v = rot(coeffs_ell_v, ax2[0], r1, center_wolter_v)
+        coeffs_ell_v = rot(coeffs_ell_v, ax2[2], y2 - y1, mean_c2)
+        coeffs_ell_v = rot(coeffs_ell_v, ax2[1], p2 - p1, mean_c2)
+        coeffs_ell_v = rot(coeffs_ell_v, ax2[0], r2 - r1, mean_c2)
+        coeffs_hyp_v = decenter(coeffs_hyp_v, ax1, hyp_v)
+        coeffs_hyp_h = decenter(coeffs_hyp_h, ax4, hyp_h)
+        coeffs_ell_v = decenter(coeffs_ell_v, ax2, ell_v)
+        coeffs_ell_h = decenter(coeffs_ell_h, ax3, ell_h)
+    else:
+        # independent per-mirror misalignment, as one batch of 4
+        q_mis = _apply_align_local(
+            P.stack([coeffs_hyp_v, coeffs_ell_v, coeffs_ell_h, coeffs_hyp_h]),
+            torch.stack([ax1, ax2, ax3, ax4]),
+            torch.stack([hyp_v, ell_v, ell_h, hyp_h]),
+            torch.stack([mean_c1, mean_c2, mean_c3, mean_c4]), P)
+        coeffs_hyp_v, coeffs_ell_v, coeffs_ell_h, coeffs_hyp_h = \
+            P.unbind(q_mis)
+    return (P.f64(coeffs_hyp_v), P.f64(coeffs_ell_v), P.f64(coeffs_ell_h),
+            P.f64(coeffs_hyp_h), mean_c3, mean_c4, valid)
+
+
+@spans.spanned("systems.build")
+def build_wolter_3_1(spec: AKBSpec, params: AlignParams,
+                     source_shift=(0.0, 0.0, 0.0),
+                     unit_coupled: bool | str = False,
+                     fan_centering: str = "theta1",
+                     precise: bool = True,
+                     ref_shift_z_bug: bool = False) -> OpticalSystem:
+    """Place the four mirrors of a Wolter III+I AKB system on the device
+    of ``params``.
+
+    Mirror order: hyp_V -> ell_V -> ell_H -> hyp_H (hyp_H intersects on
+    the negative root branch).  ``unit_coupled``: ``False`` rotates each
+    mirror about its own chief-ray center; ``True`` rotates each Wolter
+    pair as a unit (the V hyperbola drives the V unit, ell_V gets relative
+    corrections); ``"h"`` couples only the H pair.  ``fan_centering``:
+    ``"theta1"`` subtracts the chief design angle from the fan, ``"mean"``
+    the fan midpoint.  ``precise`` runs the coefficient placement and the
+    layout angle chain in double-f64 (:mod:`akbx_torch.core.quadric_df`),
+    else in plain f64 (up to ~3e-8 rad of cancellation in omega_V).
+    ``ref_shift_z_bug`` reproduces the reference's dropped ``h -= f*s``
+    shift_z update (plain f64), for oracle parity only.
+
+    The build runs in two parts: the layout, all that does not read
+    ``params`` (:func:`_layout_3_1`, made once per spec, options and
+    device), and the placement, all that does (:func:`_place_3_1`), which
+    on a card replays from CUDA graphs, forward and backward
+    (:func:`akbx_torch.graphs.call`).  Both return what one eager pass
+    returns, bit for bit.
+    """
+    lay = _layout_3_1(spec, tuple(float(x) for x in source_shift),
+                      fan_centering, bool(precise), bool(ref_shift_z_bug),
+                      params.defocus.device)
+    c1, c2, c3, c4, mean_c3, mean_c4, valid = graphs.call(
+        lay.graphs, unit_coupled,
+        functools.partial(_place_3_1, lay, unit_coupled),
+        (params.astig_h, params.hyp_v, params.hyp_h, params.ell_v,
+         params.ell_h))
+    # the layout's tensors are shared: hand out copies
+    ax1, ax2, ax3, ax4 = (a.clone() for a in lay.axes)
+    mean_c1, mean_c2 = (c.clone() for c in lay.mean_c)
     mirrors = (
-        make_mirror(P.f64(coeffs_hyp_v), +1.0, mean_c1, ax1),
-        make_mirror(P.f64(coeffs_ell_v), +1.0, mean_c2, ax2),
-        make_mirror(P.f64(coeffs_ell_h), +1.0, mean_c3, ax3),
-        make_mirror(P.f64(coeffs_hyp_h), -1.0, mean_c4, ax4),
+        make_mirror(c1, +1.0, mean_c1, ax1),
+        make_mirror(c2, +1.0, mean_c2, ax2),
+        make_mirror(c3, +1.0, mean_c3, ax3),
+        make_mirror(c4, -1.0, mean_c4, ax4),
     )
-    return OpticalSystem(mirrors, s2f_middle, fan_h, fan_v, src_shift, valid)
+    return OpticalSystem(mirrors, lay.s2f_middle.clone(), lay.fan_h.clone(),
+                         lay.fan_v.clone(), lay.source.clone(), valid)
 
 
 @dataclasses.dataclass(frozen=True)

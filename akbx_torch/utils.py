@@ -23,6 +23,26 @@ def to_numpy(x) -> np.ndarray:
     return np.asarray(x)
 
 
+_CONSTANTS: dict = {}
+
+
+def constant(values, like: torch.Tensor, dtype=None) -> torch.Tensor:
+    """``values`` (a number or nested tuples of numbers) as a tensor of
+    ``dtype`` (default ``like``'s) on ``like``'s device, made once per
+    (values, dtype, device) and shared by every caller, which only reads
+    it: after the first call no copy from host memory, so a caller may run
+    inside a CUDA graph's capture.  Numbers equal in Python share one
+    tensor (0.0 and -0.0 among them)."""
+    dtype = dtype or like.dtype
+    key = (values, dtype, like.device)
+    t = _CONSTANTS.get(key)
+    if t is None:
+        with torch.inference_mode(False), torch.no_grad():
+            t = torch.tensor(values, dtype=dtype, device=like.device)
+        _CONSTANTS[key] = t
+    return t
+
+
 def linspace(lo, hi, n: int, like: torch.Tensor | None = None):
     """``jnp.linspace(lo, hi, n)`` in float64, bit for bit: ``lo (1 - s) +
     hi s`` with ``s = i / (n - 1)``, the last point exactly ``hi``.  The

@@ -10,11 +10,15 @@ so it runs on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import statistics
+import time
+
 import numpy as np
 import pytest
 import torch
+import torch.autograd.forward_ad as fwad
 
-from akbx_torch import trace, wave
+from akbx_torch import align, graphs, systems, trace, wave
 from akbx_torch.core import precision
 from akbx_torch.kernels import df32_check
 from akbx_torch.kernels import huygens as hk
@@ -625,3 +629,161 @@ def test_k4_refuses_inputs_that_require_grad(dev, inp):
     with torch.no_grad():
         k4.huygens_f64(*ins, acc[0], acc[1])
     assert k4.huygens_f64.launches == before + 1
+
+
+# --- the III+I placement replayed from CUDA graphs (akbx_torch.graphs) ---
+
+def _graphed(p):
+    return build_wolter_3_1(WOLTER_3_1_DEFAULT, p)
+
+
+def _eager(p):
+    """The same build, its placement run eagerly: ``graphs.call`` runs
+    eagerly under forward-mode AD."""
+    with fwad.dual_level():
+        return build_wolter_3_1(WOLTER_3_1_DEFAULT, p)
+
+
+def _bits(a, b):
+    """Equal bit for bit (signed zeros included)."""
+    if a.dtype == torch.float64:
+        a, b = a.view(torch.int64), b.view(torch.int64)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def _bench_step(build, vec, dev, n=33):
+    """The align cell's step at ``vec`` on an ``n`` x ``n`` fan: the
+    system and the gradient of the bench loss."""
+    v = torch.tensor(vec, device=dev, requires_grad=True)
+    s = build(AlignParams.from_vector(v))
+    r = trace.run(s, n, n, defocus=v[0], exit_pupil_uniform=False,
+                  tilt_correction=True, precision="pallas")
+    sy, sz = trace.spot_size(r.ddet32, r.valid)
+    (torch.sum(torch.where(r.valid, r.w32, 0.0) ** 2) * 1e18
+     + sy + sz).backward()
+    return s, v.grad
+
+
+def _mirror_loss(s):
+    """A loss on every mirror's coefficients and center."""
+    w = torch.Generator().manual_seed(0)
+    dev = s.valid.device
+    return sum((m.coeffs * torch.randn(10, generator=w, dtype=torch.float64)
+                .to(dev)).sum()
+               + (m.center * torch.randn(3, generator=w, dtype=torch.float64)
+                  .to(dev)).sum() for m in s.mirrors)
+
+
+def test_placement_graph_bit_identical_to_eager(dev):
+    """On 8 vectors drawn as the align cell draws them, the graphed build
+    returns the eager build's coefficients, centers, axes and ``valid``
+    and the bench loss's gradient, bit for bit."""
+    rng = np.random.default_rng(1717)
+    replays, eager = graphs.replays, graphs.eager
+    for _ in range(8):
+        vec = rng.normal(0.0, 1e-5, 26)
+        (sg, gg), (se, ge) = (_bench_step(b, vec, dev)
+                              for b in (_graphed, _eager))
+        for mg, me in zip(sg.mirrors, se.mirrors):
+            for f in ("coeffs", "center", "axes"):
+                assert _bits(getattr(mg, f), getattr(me, f)), f
+        assert _bits(sg.valid, se.valid) and bool(sg.valid)
+        assert _bits(gg, ge)
+    assert (graphs.replays - replays, graphs.eager - eager) == (8, 8)
+
+
+def test_placement_graph_returns_fresh_tensors(dev):
+    """A step's tensors and gradient outlive the next step's replays; a
+    backward after a later replay of its graph runs the placement again
+    eagerly, and gives the eager gradient."""
+    rng = np.random.default_rng(1718)
+    vs = [torch.tensor(rng.normal(0.0, 1e-5, 26), device=dev,
+                       requires_grad=True) for _ in range(2)]
+    s1 = _graphed(AlignParams.from_vector(vs[0]))
+    kept = [t.clone() for m in s1.mirrors for t in m]
+    s2 = _graphed(AlignParams.from_vector(vs[1]))
+    assert all(_bits(a, b) for a, b in
+               zip(kept, [t for m in s1.mirrors for t in m]))
+    assert not torch.equal(s1.mirrors[0].coeffs, s2.mirrors[0].coeffs)
+    eager = graphs.eager
+    _mirror_loss(s1).backward()
+    assert graphs.eager == eager + 1
+    g1 = vs[0].grad.clone()
+    _mirror_loss(s2).backward()
+    assert graphs.eager == eager + 1
+    assert _bits(vs[0].grad, g1)
+    for v in vs:
+        w = v.detach().clone().requires_grad_(True)
+        _mirror_loss(_eager(AlignParams.from_vector(w))).backward()
+        assert _bits(w.grad, v.grad)
+
+
+def test_placement_graph_counts(dev, monkeypatch):
+    """N steps from a fresh layout: one capture, N replays, no eager
+    placement."""
+    monkeypatch.setattr(systems, "_LAYOUTS", {})
+    rng = np.random.default_rng(1719)
+    before = (graphs.captures, graphs.replays, graphs.eager)
+    for _ in range(5):
+        v = torch.tensor(rng.normal(0.0, 1e-5, 26), device=dev,
+                         requires_grad=True)
+        _mirror_loss(_graphed(AlignParams.from_vector(v))).backward()
+        assert torch.isfinite(v.grad).all()
+    assert (graphs.captures - before[0], graphs.replays - before[1],
+            graphs.eager - before[2]) == (1, 5, 0)
+
+
+def test_value_and_jacobian_graphed_equals_eager(dev):
+    """``align._value_and_jacobian`` runs one backward a row through one
+    forward (``retain_graph``): its rows are eager's, bit for bit."""
+    w = torch.randn((4, 10), generator=torch.Generator().manual_seed(3),
+                    dtype=torch.float64).to(dev)
+
+    def metric(build):
+        def fn(p):
+            s = build(AlignParams.from_vector(p))
+            rows = [(m.coeffs * w[i]).sum() for i, m in enumerate(s.mirrors)]
+            return torch.stack(rows + [s.mirrors[2].center.sum(),
+                                       s.mirrors[3].center.sum()])
+        return fn
+
+    vec = torch.tensor(np.random.default_rng(1720).normal(0.0, 1e-5, 26),
+                       device=dev)
+    idx = list(range(1, 26))
+    replays = graphs.replays
+    mg, Jg = align._value_and_jacobian(metric(_graphed), vec, idx)
+    assert graphs.replays == replays + 1
+    me, Je = align._value_and_jacobian(metric(_eager), vec, idx)
+    assert _bits(mg, me) and _bits(Jg, Je)
+
+
+def test_placement_graph_times(dev):
+    """Prints the placement's forward and backward ms, eager and graphed
+    (host clock around work that ends in a synchronize; medians of 10)."""
+    lay = systems._layout_3_1(WOLTER_3_1_DEFAULT, (0.0, 0.0, 0.0), "theta1",
+                              True, False, dev)
+    v = torch.tensor(np.random.default_rng(1721).normal(0.0, 1e-5, 26),
+                     device=dev, requires_grad=True)
+    p = AlignParams.from_vector(v)
+    ins = (p.astig_h, p.hyp_v, p.hyp_h, p.ell_v, p.ell_h)
+    runs = {"eager": lambda: systems._place_3_1(lay, False, *ins),
+            "graphed": lambda: graphs.call(
+                lay.graphs, False,
+                lambda *x: systems._place_3_1(lay, False, *x), ins)}
+    for name, run in runs.items():
+        fwd, bwd = [], []
+        for i in range(12):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = run()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            torch.autograd.backward(outs[:6],
+                                    [torch.ones_like(o) for o in outs[:6]])
+            torch.cuda.synchronize()
+            if i >= 2:
+                fwd.append((t1 - t0) * 1e3)
+                bwd.append((time.perf_counter() - t1) * 1e3)
+        print(f"\nplacement {name} ({torch.cuda.get_device_name(dev)}): "
+              f"forward {statistics.median(fwd):.3f} ms, backward "
+              f"{statistics.median(bwd):.3f} ms")
