@@ -25,6 +25,8 @@ still be running.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from akbx_torch.core import use_kernel
@@ -60,28 +62,46 @@ _N_DCONST = 32
 MAX_PLANES = 4
 
 
-def pack_consts(Ms, gCs, gAs, Ds, Dns, Ts, A_noms, Bp_noms, rhos,
-                branches, bvecs) -> torch.Tensor:
+class ChiefConsts(NamedTuple):
+    """The f64 chief constants of the deviation trace, one row per mirror
+    (leading dim n_mirr): what :func:`pack_consts` splits into K1's table
+    and what the twins read.  Frames are the mirror's chief hit point."""
+
+    M: torch.Tensor        # (nm, 3, 3) the quadric's matrix
+    bvec: torch.Tensor     # (nm, 3) its linear term, gradQ(0)
+    D: torch.Tensor        # (nm, 3) the chief's incoming direction
+    Dn: torch.Tensor       # (nm, 3) its outgoing direction
+    T: torch.Tensor        # (nm,) its leg length to the mirror
+    A: torch.Tensor        # (nm,) D^T M D
+    Bp: torch.Tensor       # (nm,) 2 A T + B, B of the chief's quadratic
+    rho: torch.Tensor      # (nm,) the chief's residual (~0)
+    gC: torch.Tensor       # (nm, 3) gradQ at the previous hit point
+    gA: torch.Tensor       # (nm, 3) 2 M D
+    branch: torch.Tensor   # (nm,) the chief's root branch
+    P: torch.Tensor        # (nm, 3) the chief's hit point
+
+
+def pack_consts(c: ChiefConsts) -> torch.Tensor:
     """(n_mirr, 64) f32 table of hi/lo-split f64 chief constants."""
-    n = Ms.shape[0]
-    rows = torch.zeros((n, _N_CONST), dtype=F32, device=Ms.device)
-    Mh, Ml = split64(Ms.reshape(n, 9))
+    n = c.M.shape[0]
+    rows = torch.zeros((n, _N_CONST), dtype=F32, device=c.M.device)
+    Mh, Ml = split64(c.M.reshape(n, 9))
     rows[:, _M_HI:_M_HI + 9] = Mh
     rows[:, _M_LO:_M_LO + 9] = Ml
-    for col_hi, col_lo, v in ((_GC_HI, _GC_LO, gCs), (_GA_HI, _GA_LO, gAs),
-                              (_D_HI, _D_LO, Ds), (_DN_HI, _DN_LO, Dns),
-                              (_BV_HI, _BV_LO, bvecs)):
+    for col_hi, col_lo, v in ((_GC_HI, _GC_LO, c.gC), (_GA_HI, _GA_LO, c.gA),
+                              (_D_HI, _D_LO, c.D), (_DN_HI, _DN_LO, c.Dn),
+                              (_BV_HI, _BV_LO, c.bvec)):
         h, low = split64(v)
         rows[:, col_hi:col_hi + 3] = h
         rows[:, col_lo:col_lo + 3] = low
-    for col_hi, col_lo, v in ((_T_HI, _T_LO, Ts), (_A_HI, _A_LO, A_noms),
-                              (_BP_HI, _BP_LO, Bp_noms),
-                              (_RHO_HI, _RHO_LO, rhos),
-                              (_T2_HI, _T2_LO, Ts * Ts)):
+    for col_hi, col_lo, v in ((_T_HI, _T_LO, c.T), (_A_HI, _A_LO, c.A),
+                              (_BP_HI, _BP_LO, c.Bp),
+                              (_RHO_HI, _RHO_LO, c.rho),
+                              (_T2_HI, _T2_LO, c.T * c.T)):
         h, low = split64(v)
         rows[:, col_hi] = h
         rows[:, col_lo] = low
-    rows[:, _BRANCH] = branches.to(F32)
+    rows[:, _BRANCH] = c.branch.to(F32)
     return rows
 
 

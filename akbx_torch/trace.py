@@ -137,11 +137,8 @@ def trace(system: OpticalSystem, rays: torch.Tensor,
 
 
 def _deviation_constants(system: OpticalSystem, P, D, T, chief_p0):
-    """Stacked per-mirror f64 chief constants of the deviation trace.
-
-    Returns (Ms, bvecs, Ds, Dns, Ts, A_noms, Bp_noms, rhos, gCs, gAs,
-    branches, Ps), each with leading dim n_mirrors.
-    """
+    """Stacked per-mirror f64 chief constants of the deviation trace
+    (:class:`akbx_torch.kernels.trace_kernel.ChiefConsts`)."""
     Ps = torch.stack(P)                             # (nm, 3)
     coeffs_l = geo.shift(torch.stack([m.coeffs for m in system.mirrors]),
                          -Ps)
@@ -167,8 +164,8 @@ def _deviation_constants(system: OpticalSystem, P, D, T, chief_p0):
     rhos = (A_noms * Ts + B_noms) * Ts + C_noms     # chief residuals (~0)
     Bp_noms = 2.0 * A_noms * Ts + B_noms
     branches = torch.stack([m.branch for m in system.mirrors])
-    return (Ms, bvecs, Ds, Dns, Ts, A_noms, Bp_noms, rhos, gCs, gAs,
-            branches, Ps)
+    return tk.ChiefConsts(Ms, bvecs, Ds, Dns, Ts, A_noms, Bp_noms, rhos, gCs,
+                          gAs, branches, Ps)
 
 
 @spans.spanned("trace.chief")
@@ -192,20 +189,18 @@ def _df_bounce(consts, m: int, dp: gdf.Vec3DF, dd: gdf.Vec3DF):
     """One bounce of :func:`trace_df`: the deviation of the intersection
     (dq), of the reflected direction (dd'), the unit normal and the leg
     length deviation (dt) in double-f32, and the rays' validity."""
-    (Ms, bvecs, Ds, Dns, Ts, A_noms, Bp_noms, rhos, gCs, gAs, branches,
-     _) = consts
     shape = dp.x.hi.shape
-    M9 = gdf.mat3_const(Ms[m])
-    gC_c = gdf.vec3_const(gCs[m], shape)
-    gA_c = gdf.vec3_const(gAs[m], shape)
-    D_c = gdf.vec3_const(Ds[m], shape)
-    Dn_c = gdf.vec3_const(Dns[m], shape)
-    nn_c = gdf.vec3_const(bvecs[m], shape)          # gradQ(0) = bvec
-    T_c = gdf.df_bcast(gdf.split_f64(Ts[m]), shape)
-    T2_c = gdf.df_bcast(gdf.split_f64(Ts[m] * Ts[m]), shape)
-    A_c = gdf.df_bcast(gdf.split_f64(A_noms[m]), shape)
-    Bp_c = gdf.df_bcast(gdf.split_f64(Bp_noms[m]), shape)
-    rho_c = gdf.df_bcast(gdf.split_f64(rhos[m]), shape)
+    M9 = gdf.mat3_const(consts.M[m])
+    gC_c = gdf.vec3_const(consts.gC[m], shape)
+    gA_c = gdf.vec3_const(consts.gA[m], shape)
+    D_c = gdf.vec3_const(consts.D[m], shape)
+    Dn_c = gdf.vec3_const(consts.Dn[m], shape)
+    nn_c = gdf.vec3_const(consts.bvec[m], shape)    # gradQ(0) = bvec
+    T_c = gdf.df_bcast(gdf.split_f64(consts.T[m]), shape)
+    T2_c = gdf.df_bcast(gdf.split_f64(consts.T[m] * consts.T[m]), shape)
+    A_c = gdf.df_bcast(gdf.split_f64(consts.A[m]), shape)
+    Bp_c = gdf.df_bcast(gdf.split_f64(consts.Bp[m]), shape)
+    rho_c = gdf.df_bcast(gdf.split_f64(consts.rho[m]), shape)
 
     # per-ray deviation forms (every operand small or O(1))
     Mdp = gdf.matvec(M9, dp)
@@ -237,7 +232,7 @@ def _df_bounce(consts, m: int, dp: gdf.Vec3DF, dd: gdf.Vec3DF):
     t_R_over_q = df_div(R, safe_q)
     t_plus = _where_df(b_pos, t_R_over_q, t_q_over_A)
     t_minus = _where_df(b_pos, t_q_over_A, t_R_over_q)
-    dt = _where_df(branches[m] >= 0, t_plus, t_minus)
+    dt = _where_df(consts.branch[m] >= 0, t_plus, t_minus)
 
     # intersection deviation: dq = dp + T dd + dt (D + dd)
     d_full = gdf.Vec3DF(df_add(dd.x, D_c.x), df_add(dd.y, D_c.y),
@@ -284,7 +279,7 @@ def trace_df(system: OpticalSystem, rays: torch.Tensor,
         chief_idx = n_rays // 2
     chief_d0, chief_p0, consts = _fast_scalars(system, rays, origins,
                                                chief_idx)
-    Ps, Dns, Ts = consts[-1], consts[3], consts[4]
+    Ps, Dns, Ts = consts.P, consts.Dn, consts.T
     # per-ray deviations: exact f64 subtraction, then split to f32 pairs
     dd = gdf.Vec3DF.from_f64(rays - chief_d0)
     dp = gdf.Vec3DF.from_f64(origins - chief_p0)
@@ -317,26 +312,24 @@ def _dot(c, v):
     return c[0] * v[0] + c[1] * v[1] + c[2] * v[2]
 
 
-def _dev32_scan(consts32, dp0, dd0):
+def _dev32_scan(c, dp0, dd0):
     """The deviation bounce chain in the plain arithmetic of the inputs'
     dtype, one op for each double-word op of K1.  Returns per-mirror lists (dqs, dds, normals, dts) and the
-    validity mask."""
-    (Ms, bvecs, Ds, Dns, Ts, A_noms, Bp_noms, rhos, gCs, gAs, branches,
-     _) = consts32
+    validity mask.  ``c``: the chief constants in that dtype."""
     dp, dd = dp0, dd0
     valid = torch.ones(dp0.shape[1], dtype=torch.bool, device=dp0.device)
     dqs, dds, normals, dts = [], [], [], []
-    for m in range(Ms.shape[0]):
-        M, Ti = Ms[m], Ts[m]
+    for m in range(c.M.shape[0]):
+        M, Ti = c.M[m], c.T[m]
         Mdp = _mv(M, dp)
         Mdd = _mv(M, dd)
-        dC = _dot(gCs[m], dp) + torch.sum(Mdp * dp, dim=0)
-        dA = _dot(gAs[m], dd) + torch.sum(Mdd * dd, dim=0)
-        dB = (_dot(gCs[m], dd) + _dot(gAs[m], dp)
+        dC = _dot(c.gC[m], dp) + torch.sum(Mdp * dp, dim=0)
+        dA = _dot(c.gA[m], dd) + torch.sum(Mdd * dd, dim=0)
+        dB = (_dot(c.gC[m], dd) + _dot(c.gA[m], dp)
               + 2.0 * torch.sum(Mdp * dd, dim=0))
-        R = (dA * Ti + dB) * Ti + dC + rhos[m]
-        A_full = dA + A_noms[m]
-        Bp = 2.0 * dA * Ti + dB + Bp_noms[m]
+        R = (dA * Ti + dB) * Ti + dC + c.rho[m]
+        A_full = dA + c.A[m]
+        Bp = 2.0 * dA * Ti + dB + c.Bp[m]
         disc = Bp * Bp - 4.0 * A_full * R
         ok = disc > 0
         sq = torch.sqrt(torch.where(ok, disc, 0.0))
@@ -347,16 +340,16 @@ def _dev32_scan(consts32, dp0, dd0):
         safe_A = torch.where(A_full != 0, A_full, 1.0)
         t_plus = torch.where(b_pos, R / safe_q, qq / safe_A)
         t_minus = torch.where(b_pos, qq / safe_A, R / safe_q)
-        dt = torch.where(branches[m] >= 0, t_plus, t_minus)
+        dt = torch.where(c.branch[m] >= 0, t_plus, t_minus)
         valid = valid & ok
 
-        d_full = dd + Ds[m][:, None]
+        d_full = dd + c.D[m][:, None]
         dq = dp + Ti * dd + dt * d_full
-        nvec = bvecs[m][:, None] + 2.0 * _mv(M, dq)
+        nvec = c.bvec[m][:, None] + 2.0 * _mv(M, dq)
         n_unit = nvec / torch.sqrt(torch.sum(nvec * nvec, dim=0,
                                              keepdim=True))
         refl = d_full - 2.0 * torch.sum(d_full * n_unit, dim=0) * n_unit
-        dd = refl - Dns[m][:, None]
+        dd = refl - c.Dn[m][:, None]
         dp = dq
         dqs.append(dq)
         dds.append(dd)
@@ -370,7 +363,7 @@ def _dev32_trace(system, rays, origins, chief_idx: int, dtype=F32):
     ``dtype``: ``(consts64, (dqs, dds, normals, dts, valid))``."""
     chief_d0, chief_p0, consts64 = _fast_scalars(system, rays, origins,
                                                  chief_idx)
-    consts = tuple(c.to(dtype) for c in consts64)
+    consts = tk.ChiefConsts(*(c.to(dtype) for c in consts64))
     return consts64, _dev32_scan(consts, (origins - chief_p0).to(dtype),
                                  (rays - chief_d0).to(dtype))
 
@@ -388,7 +381,7 @@ def trace_dev32(system: OpticalSystem, rays: torch.Tensor,
         chief_idx = rays.shape[1] // 2
     consts64, (dqs, dds, normals, dts, valid) = _dev32_trace(
         system, rays, origins, chief_idx, dtype)
-    Ps, Dns, Ts = consts64[-1], consts64[3], consts64[4]
+    Ps, Dns, Ts = consts64.P, consts64.Dn, consts64.T
     n_mirr = Ps.shape[0]
     return TraceResult(
         tuple(Ps[i][:, None] + dqs[i].to(F64) for i in range(n_mirr)),
@@ -458,21 +451,18 @@ def _k1(system, rays, origins, chief_idx: int):
     outputs)`` (:func:`akbx_torch.kernels.trace_kernel.trace_deviation`)."""
     chief_d0, chief_p0, consts64 = _fast_scalars(system, rays, origins,
                                                  chief_idx)
-    (Ms, bvecs, Ds, Dns, Ts, A_noms, Bp_noms, rhos, gCs, gAs, branches,
-     Ps) = consts64
     with spans.span("trace.k1"):
-        consts = tk.pack_consts(Ms, gCs, gAs, Ds, Dns, Ts, A_noms, Bp_noms,
-                                rhos, branches, bvecs)
+        consts = tk.pack_consts(consts64)
         return consts64, tk.trace_deviation(consts, origins - chief_p0,
-                                            rays - chief_d0, Ps.shape[0])
+                                            rays - chief_d0,
+                                            consts64.P.shape[0])
 
 
 def _trace_pallas_forward(system, rays, origins, chief_idx: int):
     """K1 on the whole fan: (dq_hi, dq_lo, od_hi, od_lo, dt_hi, dt_lo,
     valid, P_chief, D_chief, T_chief)."""
     consts64, out = _k1(system, rays, origins, chief_idx)
-    return (*out[:6], out[8][0] > 0.5, consts64[-1], consts64[3],
-            consts64[4])
+    return (*out[:6], out[8][0] > 0.5, consts64.P, consts64.Dn, consts64.T)
 
 
 def _trace_pallas_f32(system, rays, origins, chief_idx: int):
@@ -481,7 +471,7 @@ def _trace_pallas_f32(system, rays, origins, chief_idx: int):
     consts64, (dqs, dds, _, dts, valid) = _dev32_trace(
         system, rays, origins, chief_idx, F64)
     return (torch.cat(dqs), None, torch.cat(dds), None, torch.stack(dts),
-            None, valid, consts64[-1], consts64[3], consts64[4])
+            None, valid, consts64.P, consts64.Dn, consts64.T)
 
 
 class _TracePallas(_TwinVJP):
@@ -632,9 +622,9 @@ def _det_plane_scalars(P4r, D4r, det_x):
 def _fast_post_scalars(consts64, det_x, det_x2, theta_y, theta_z, focus,
                        tilt: bool):
     """Rotation + per-plane chief constants of the detector stage."""
-    Ts = consts64[4]
-    P4 = consts64[-1][-1]
-    D4 = consts64[3][-1]
+    Ts = consts64.T
+    P4 = consts64.P[-1]
+    D4 = consts64.Dn[-1]
     if tilt:
         R = _tilt_rotation(theta_y, theta_z)
         P4r = R @ (P4 - focus) + focus
@@ -655,7 +645,7 @@ def _fast_devs_forward(system, rays, origins, det_x, det_x2, chief_idx: int,
     detector planes in one launch)."""
     consts64, (dq_hi, dq_lo, od_hi, od_lo, dt_hi, dt_lo, dsum_hi, dsum_lo,
                val) = _k1(system, rays, origins, chief_idx)
-    Ps, Dns, Ts = consts64[-1], consts64[3], consts64[4]
+    Ps, Dns, Ts = consts64.P, consts64.Dn, consts64.T
     n_mirr = Ps.shape[0]
     valid = val[0] > 0.5
     s = slice(3 * (n_mirr - 1), 3 * n_mirr)
@@ -711,7 +701,7 @@ def _fast_devs_f32(system, rays, origins, det_x, det_x2, chief_idx: int,
         system, rays, origins, chief_idx, F64)
     dq4, dd4 = dqs[-1], dds[-1]
     dt = torch.stack(dts)
-    Ps, Dns, Ts = consts64[-1], consts64[3], consts64[4]
+    Ps, Dns, Ts = consts64.P, consts64.Dn, consts64.T
     theta_y, theta_z = _tilt_stats(Dns[-1], dd4, valid, tilt, tilt_mode)
     focus = _pre_tilt_focus(Ps[-1], Dns[-1], det_x, dq4, dd4, valid)
     (R, P4r, D4r, t_c, det_c, L, t_c2, det_c2, L2, total_chief,

@@ -5,7 +5,7 @@ were tried for K3 and K1, and two trees side by side.
 Run from the repository root, on a machine with a CUDA card and nvcc:
 
     python3 chip_kernel_tune.py               # the variants of K3 and K1
-    python3 chip_kernel_tune.py --times       # K1, K2, K3 as shipped
+    python3 chip_kernel_tune.py --times       # K1, K2, K3, K4 as shipped
     python3 chip_kernel_tune.py --compare DIR # this tree against the one
                                               # unpacked in DIR
 
@@ -15,20 +15,25 @@ The variants run come from a second build of the kernel library
 256 an SM as its register target, with and without streaming stores.
 Each variant is held bit for bit against the shipped kernel, and its
 registers, stack and spills are read from the build log.  Shapes are the
-main paths': a 2048x2048 fan (4,194,304 rays) and a 66,049 x 66,049
-stage.  Times are medians of CUDA-event runs after a warm-up.  It also
-prints the machine instructions of the shipped K3 and K1 by opcode
+main paths': a 2048x2048 fan (4,194,304 rays; K1's and K2's arguments are
+those ``trace.run`` passes them), a 66,049 x 66,049 stage, and for K4 the
+ring's 16,520 x 16,520 tile (one rank's targets and source block at 257^2
+on four ranks).  Times are medians of CUDA-event runs after a warm-up.
+It also prints the machine instructions of the shipped K3 and K1 by opcode
 (``cuobjdump -sass``) and the SM clock while K3 runs, which together say
 how close a kernel is to the card's instruction rate.
 
 ``--compare DIR`` runs ``--times`` in turns on DIR (an older tree, e.g.
 ``git archive`` of the parent commit), this tree, this tree, DIR, each in
 a process of its own on the same card, and prints the four readings.
-``--times`` touches only what both trees have: the wrappers
-``trace_deviation``, ``detector``, ``huygens`` and ``kernel_args``.
+``--times`` touches only what both trees have: ``trace.run`` and the
+wrappers ``trace_deviation``, ``detector``, ``huygens``, ``kernel_args``
+and, in a tree that has it, ``huygens_f64`` (K4 is left out of a tree
+without it).
 """
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -38,10 +43,16 @@ import sys
 
 import numpy as np
 
+# the seeded source / target cloud of the tests (imported where used, once
+# ``--root`` has chosen the akbx_torch it imports)
+sys.path.insert(1, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "tests"))
+
 N_SIDE = 2048    # the forward path's fan
 W_SIDE = 257     # the wave path's fan: 66,049 points a surface
 EUV = 13.5e-9
 FEW = 2048       # targets of the few-target timing of K3
+RING_TILE = (16_520, 16_520)   # K4's tile: the ring at 257^2 on four ranks
 # K3: (targets' block, sources in flight per thread, lanes per target)
 K3_VARIANTS = ([(b, u, 1) for b in (64, 128, 256) for u in (1, 2, 4)]
                + [(256, 8, 1)]
@@ -78,57 +89,81 @@ def time_ms(fn, reps, warmup=1):
     return statistics.median(once() for _ in range(reps))
 
 
-def inputs(dev):
-    """K1's, K2's and K3's arguments at the main paths' shapes."""
-    import torch
+@contextlib.contextmanager
+def kept(module, name, calls):
+    """While open, every call of ``module.name`` (a kernel's wrapper)
+    appends its arguments to ``calls``; the wrapper's launch count carries
+    over."""
+    fn = getattr(module, name)
 
-    from akbx_torch import trace, wave
+    def keep(*args):
+        calls.append(args)
+        return fn(*args)
+
+    keep.launches = fn.launches
+    setattr(module, name, keep)
+    try:
+        yield
+    finally:
+        fn.launches = keep.launches
+        setattr(module, name, fn)
+
+
+def inputs(dev):
+    """K1's and K2's arguments as ``trace.run`` passes them on a 2048x2048
+    fan through the Wolter III+I system without misalignment, and K3's at
+    the wave path's shapes."""
+    from akbx_torch import trace
     from akbx_torch.kernels import huygens as hk
     from akbx_torch.kernels import trace_kernel as tk
     from akbx_torch.systems import (AlignParams, WOLTER_3_1_DEFAULT,
                                     build_wolter_3_1)
+    from torch_parallel_worker import cloud
 
-    s = build_wolter_3_1(WOLTER_3_1_DEFAULT, AlignParams.zeros(dev))
-    rays = trace.ray_fan(trace.fan_angles(s.fan_h, N_SIDE),
-                         trace.fan_angles(s.fan_v, N_SIDE))
-    n = rays.shape[1]
-    src = s.source[:, None].expand(3, n)
-    chief_d0, chief_p0, c64 = trace._fast_scalars(s, rays, src, n // 2)
-    (Ms, bvecs, Ds, Dns, Ts, A, Bp, rho, gC, gA, br, _) = c64
-    table = tk.pack_consts(Ms, gC, gA, Ds, Dns, Ts, A, Bp, rho, br, bvecs)
-    k1 = (table, (src - chief_p0).contiguous(),
-          (rays - chief_d0).contiguous(), 4)
-    out = tk.trace_deviation(*k1)
-    f64 = dict(dtype=torch.float64, device=dev)
-    R = torch.eye(3, **f64)
-    planes = torch.cat([
-        tk.pack_det_consts(R, Dns[-1], torch.tensor(t, **f64),
-                           torch.tensor(t, **f64)) for t in (0.2, 0.201)])
-    k2 = (planes, out[0][9:12].contiguous(), out[1][9:12].contiguous(),
-          out[2][9:12].contiguous(), out[3][9:12].contiguous(), out[6],
-          out[7])
-    del out
+    calls = {"K1": [], "K2": []}
+    with kept(tk, "trace_deviation", calls["K1"]), \
+            kept(tk, "detector", calls["K2"]):
+        s = build_wolter_3_1(WOLTER_3_1_DEFAULT, AlignParams.zeros(dev))
+        trace.run(s, N_SIDE, N_SIDE, defocus=0.0, exit_pupil_uniform=False,
+                  precision="pallas")
+    field, tgt = cloud(dev, W_SIDE ** 2, W_SIDE ** 2, 1)
+    return calls["K1"][-1], calls["K2"][-1], hk.kernel_args(field, tgt, EUV)
 
-    m = W_SIDE ** 2
-    rng = np.random.default_rng(1)
-    pts = np.array([145.0, 0.02, 0.0])[:, None] + rng.normal(size=(3, m)) * 0.05
-    tgt = np.array([146.0, 0.05, 0.01])[:, None] + rng.normal(size=(3, m)) * 0.02
-    u = rng.normal(size=m) + 1j * rng.normal(size=m)
-    ds = np.abs(rng.normal(size=m)) * 1e-8
-    field = wave.WaveField.from_complex(pts, u, ds, device=dev)
-    k3 = hk.kernel_args(field, torch.tensor(tgt, device=dev), EUV)
-    return k1, k2, k3
+
+def k4_inputs(dev):
+    """K4's arguments on the ring's tile, in the ring's absolute
+    coordinates, and its two sums; None in a tree without K4."""
+    import torch
+
+    try:
+        from akbx_torch.kernels import huygens_f64 as k4
+    except ImportError:
+        return None
+    from torch_parallel_worker import cloud
+
+    n, m = RING_TILE
+    src, tgt = cloud(dev, n, m, 16)
+    acc = torch.zeros((2, n), dtype=torch.float64, device=dev)
+    return k4.huygens_f64, (tgt.contiguous(), src.points.contiguous(),
+                            src.re * src.ds, src.im * src.ds,
+                            2.0 * np.pi / EUV, acc[0], acc[1])
 
 
 def shipped_times(dev):
-    """K1, K2, K3 through their wrappers (ms, median of 10 / 10 / 5)."""
+    """K1, K2, K3, K4 through their wrappers (ms, median of 10 / 10 / 5 /
+    10); K4 only in a tree that has it."""
     from akbx_torch.kernels import huygens as hk
     from akbx_torch.kernels import trace_kernel as tk
 
     k1, k2, k3 = inputs(dev)
-    return {"K1": time_ms(lambda: tk.trace_deviation(*k1), 10, 2),
-            "K2": time_ms(lambda: tk.detector(*k2), 10, 2),
-            "K3": time_ms(lambda: hk.huygens(*k3), 5, 1)}
+    times = {"K1": time_ms(lambda: tk.trace_deviation(*k1), 10, 2),
+             "K2": time_ms(lambda: tk.detector(*k2), 10, 2),
+             "K3": time_ms(lambda: hk.huygens(*k3), 5, 1)}
+    k4 = k4_inputs(dev)
+    if k4 is not None:
+        fn, args = k4
+        times["K4"] = time_ms(lambda: fn(*args), 10, 2)
+    return times
 
 
 def ptxas_report(log_text):

@@ -15,9 +15,9 @@ lines (name, power limit, SM clock), one line a path, with the largest
 error over the ranks and the host-clock time between barriers
 (synchronised; each path warmed up first, at a small size where a full
 one costs seconds; the trace and the PSF the median of 3), then one JSON
-line of the numbers.  chip_smoke.py's [15]
-runs the same paths on one rank; here the collectives, the ring's
-transfers and the distributed transposes move data between cards.
+line of the numbers.  ``tests/test_torch_cuda_paths.py`` runs the same
+paths on one rank; here the collectives, the ring's transfers and the
+distributed transposes move data between cards.
 
   a. sharded_trace at 2048x2048 with the re-fan and tilt: f64 against
      the unsharded f64 run on every rank (detcenter and demeaned OPL
@@ -42,18 +42,28 @@ import functools
 import json
 import os
 import subprocess
+import sys
 import time
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-import chip_smoke as cs
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "tests"))
+from torch_parallel_worker import cloud, loss_fn_for  # noqa: E402
 
+EUV = 13.5e-9
+TRAIN_LR = 1e-10        # akbx's train-step test (tests/test_sharding.py)
 # the PSF's pupil side is a multiple of the ranks (psf_fft_sharded pads
 # others up to one, which refines the image's sampling): 256 x pad 16
 SIZES = {"full": dict(n=2048, w=257, big=8192, block=512, pupil=256),
          "small": dict(n=64, w=33, big=256, block=16, pupil=32)}
+
+
+def check(cond, what):
+    if not cond:
+        raise RuntimeError(f"chip_parallel: {what}")
 
 
 def main(argv=None):
@@ -81,7 +91,6 @@ def main(argv=None):
 def run(size, on_card):
     from akbx_torch import trace, wave
     from akbx_torch.analysis import psf
-    from akbx_torch.kernels import huygens as hk
     from akbx_torch.kernels import huygens_f64 as k4
     from akbx_torch.kernels import trace_kernel as tk
     from akbx_torch.parallel import batching, dryrun, fft as pfft
@@ -129,9 +138,8 @@ def run(size, on_card):
 
     say(f"[cards] {card}")
 
-    if on_card:
-        cs.reset_counts(tk, hk)
-    vec = torch.tensor(np.random.default_rng(cs.SEED + 1).normal(
+    k1_before = tk.trace_deviation.launches
+    vec = torch.tensor(np.random.default_rng(1).normal(
         0.0, 1e-5, 26), dtype=torch.float64, device=dev)
     system = build_wolter_3_1(WOLTER_3_1_DEFAULT, AlignParams.from_vector(vec))
 
@@ -148,12 +156,13 @@ def run(size, on_card):
         opl = sh.gather_rays(sharded.total_dist - trace.masked_mean(
             sharded.total_dist, sharded.valid, mesh=mesh), mesh)
         valid = sh.gather_rays(sharded.valid, mesh)
-        cs.check(torch.equal(valid, gold.valid), f"{prec} valid")
+        check(torch.equal(valid, gold.valid), f"{prec} valid")
         results[f"trace_{prec}"] = {
             "detcenter": worst((det - gold.detcenter).abs().max()),
-            "opl": worst((opl - cs.demeaned(gold)).abs().max()),
+            "opl": worst((opl - (gold.total_dist - trace.masked_mean(
+                gold.total_dist, gold.valid))).abs().max()),
             "ms": ms[prec], "width": sharded.detcenter.shape[1]}
-    k1 = tk.trace_deviation.launches if on_card else None
+    k1 = tk.trace_deviation.launches - k1_before if on_card else None
     say(f"[a] sharded_trace {n}x{n}, re-fan + tilt, {p} ranks: f64 vs "
         f"unsharded detcenter {results['trace_f64']['detcenter']:.3e} m, "
         f"OPL {results['trace_f64']['opl']:.3e} m (bars 1e-12), "
@@ -161,30 +170,30 @@ def run(size, on_card):
         f"{results['trace_pallas']['detcenter']:.3e} m, "
         f"{results['trace_pallas']['opl']:.3e} m (bars 5e-9, 1e-9), "
         f"{ms['pallas']:.3f} ms; K1 launches on rank 0: {k1} ({card})")
-    cs.check(results["trace_f64"]["detcenter"] <= 1e-12
+    check(results["trace_f64"]["detcenter"] <= 1e-12
              and results["trace_f64"]["opl"] <= 1e-12, "sharded f64 trace")
-    cs.check(results["trace_pallas"]["detcenter"] <= 5e-9
+    check(results["trace_pallas"]["detcenter"] <= 5e-9
              and results["trace_pallas"]["opl"] <= 1e-9, "sharded K1 route")
     del gold, sharded, det, opl
 
     # b. Huygens, each rank against the f64 path on its own targets
-    src, tgt = cs.huygens_cloud(dev, 1024, 1024, cs.SEED + 15)
-    sh.huygens_sharded(src, tgt, cs.EUV, mesh)
-    sh.huygens_ring(src.points, src.re * src.ds, src.im * src.ds, tgt, cs.EUV,
+    src, tgt = cloud(dev, 1024, 1024, 15)
+    sh.huygens_sharded(src, tgt, EUV, mesh)
+    sh.huygens_ring(src.points, src.re * src.ds, src.im * src.ds, tgt, EUV,
                     mesh)
     w = size["w"] ** 2
-    src, tgt = cs.huygens_cloud(dev, w, w, cs.SEED + 15)
-    sh_ms, got = timed(lambda: sh.huygens_sharded(src, tgt, cs.EUV, mesh))
+    src, tgt = cloud(dev, w, w, 15)
+    sh_ms, got = timed(lambda: sh.huygens_sharded(src, tgt, EUV, mesh))
     lo, hi = sh.shard_bounds(w, mesh, multiple=128)
-    ref = wave.propagate(src, tgt[:, lo:hi], cs.EUV, use_pallas=False)
+    ref = wave.propagate(src, tgt[:, lo:hi], EUV, use_pallas=False)
     e_sh = worst(max(float(((g - r).abs() - 1e-10 * r.abs()).max())
                      if r.numel() else -1.0 for g, r in zip(got, ref)))
     k4_before = k4.huygens_f64.launches
     ring_ms, ring = timed(lambda: sh.huygens_ring(
-        src.points, src.re * src.ds, src.im * src.ds, tgt, cs.EUV, mesh))
+        src.points, src.re * src.ds, src.im * src.ds, tgt, EUV, mesh))
     k4_launches = k4.huygens_f64.launches - k4_before
     lo, hi = sh.shard_bounds(w, mesh, multiple=8)
-    ref = wave.propagate(src, tgt[:, lo:hi], cs.EUV, use_pallas=False)
+    ref = wave.propagate(src, tgt[:, lo:hi], EUV, use_pallas=False)
     scale = worst(torch.complex(*ref).abs().max() if hi > lo else 0.0)
     e_ring = worst(torch.complex(*ring).sub(torch.complex(*ref)).abs().max()
                    if hi > lo else 0.0) / scale
@@ -195,20 +204,20 @@ def run(size, on_card):
         f"1e-10 |f|) {e_sh:.3e} (bar 1e-12), {sh_ms:.3f} ms; huygens_ring "
         f"{e_ring:.3e} of the field (bar 1e-6), {ring_ms:.3f} ms, K4 "
         f"launches on rank 0: {k4_launches} ({card})")
-    cs.check(e_sh <= 1e-12 and e_ring <= 1e-6, "sharded Huygens")
+    check(e_sh <= 1e-12 and e_ring <= 1e-6, "sharded Huygens")
     # one K4 launch a ring step on the card, none on the CPU
-    cs.check(k4_launches == (p if on_card else 0), "the ring's K4 launches")
+    check(k4_launches == (p if on_card else 0), "the ring's K4 launches")
     del src, tgt, got, ring, ref
 
     # c. the sharded PSF
-    rng = np.random.default_rng(cs.SEED + 16)
+    rng = np.random.default_rng(16)
     y = np.linspace(-1.0, 1.0, size["pupil"])
     r2 = np.add.outer(y**2, y**2)
     opd_np = 5e-9 * r2 + 1e-9 * rng.normal(size=r2.shape)
     amp = torch.tensor(np.where(r2 <= 1.0, 1.0, np.nan), device=dev)
     weight = torch.tensor(rng.uniform(size=(16 * size["pupil"],) * 2),
                           device=dev)
-    args = (cs.EUV, 1e-6, 0.3)
+    args = (EUV, 1e-6, 0.3)
     small = torch.ones((8 * p, 8 * p), dtype=torch.float64, device=dev)
     pfft.psf_fft_sharded(small.requires_grad_(), small, *args, mesh=mesh)[
         0].sum().backward()
@@ -236,7 +245,7 @@ def run(size, on_card):
         f"(bar 1e-7); forward {ms_s:.3f} ms sharded (median of 3; the first "
         f"full-size call {first_s:.3f}), {ms_u:.3f} unsharded "
         f"({card})")
-    cs.check(e_i <= 1e-10 and e_g <= 1e-7, "sharded PSF")
+    check(e_i <= 1e-10 and e_g <= 1e-7, "sharded PSF")
     del out, i_s, i_u, g_s, g_u
 
     # d. streamed fans
@@ -253,7 +262,7 @@ def run(size, on_card):
             "std": rel(st.spot_std, yz.std(dim=1, correction=0)),
             "min": rel(st.min_yz, yz.amin(dim=1)),
             "max": rel(st.max_yz, yz.amax(dim=1))}
-    cs.check(int(st.n) == int(res.valid.sum()), "streamed count")
+    check(int(st.n) == int(res.valid.sum()), "streamed count")
     del res, yz
     if on_card:
         torch.cuda.reset_peak_memory_stats(dev)
@@ -267,23 +276,23 @@ def run(size, on_card):
         f"1e-8, std 1e-6); {big}x{big} in {big_ms:.3f} ms "
         f"({big * big / (big_ms / 1e3):.4e} rays/s), peak {peak} GB a rank; "
         f"valid {float(stats.n):.0f} ({card})")
-    cs.check(max(e_st["centroid"], e_st["min"], e_st["max"]) <= 1e-8
+    check(max(e_st["centroid"], e_st["min"], e_st["max"]) <= 1e-8
              and e_st["std"] <= 1e-6, "streamed stats")
 
     # e. the train step
     from akbx_torch import convert
 
-    fig = np.random.default_rng(cs.SEED + 17).normal(0.0, 1e-9, (4, 3, 3))
+    fig = np.random.default_rng(17).normal(0.0, 1e-9, (4, 3, 3))
     start = {"align": np.zeros(26), "figures": list(fig)}
-    adam = functools.partial(torch.optim.Adam, lr=cs.TRAIN_LR)
+    adam = functools.partial(torch.optim.Adam, lr=TRAIN_LR)
     step, _, _ = sh.make_train_step(WOLTER_3_1_DEFAULT,
-                                    cs.train_loss_fn(mesh), adam, n, n, mesh)
+                                    loss_fn_for(mesh), adam, n, n, mesh)
     params = convert.train_params_from_numpy(start, dev)
     step1_ms, (opt, params, l1) = timed(lambda: step(None, params))
     grads = [t.grad.clone() for t in sh.param_list(params)]
     step2_ms, (_, params, l2) = timed(lambda: step(opt, params))
     _, loss_u, _ = sh.make_train_step(WOLTER_3_1_DEFAULT,
-                                      cs.train_loss_fn(None), adam, n, n,
+                                      loss_fn_for(None), adam, n, n,
                                       None)
     p_u = convert.train_params_from_numpy(start, dev)
     loss_u(p_u).backward()
@@ -295,8 +304,8 @@ def run(size, on_card):
         f"{float(l2):.9e}; reduced gradient vs unsharded {g_rel:.3e} of its "
         f"scale (bar 1e-8, F11); steps {step1_ms:.3f} / {step2_ms:.3f} ms "
         f"({card})")
-    cs.check(g_rel <= 1e-8, "sharded gradient")
-    cs.check(float(l2) <= float(l1) * 1.001, "train loss rose")
+    check(g_rel <= 1e-8, "sharded gradient")
+    check(float(l2) <= float(l1) * 1.001, "train loss rose")
 
     # f. the dry run's step
     loss = dryrun.dryrun(mesh)

@@ -389,8 +389,9 @@ def test_train_step_loss_non_increasing(ranks):
 # cancel ~1e6-fold, so the two sum orders alone move each group by up to
 # ~1e-9 of its largest component (measured 2.2e-11 to 8.4e-10 at 4 ranks on
 # the CPU, with and without tilt removal and pivoted OPL); one rank sums in
-# the one order (chip_smoke.py's [15] holds 1e-12 there).  A P-fold or
-# 1/P-fold gradient, or one missing the other ranks' rays, is off by O(1).
+# the one order (tests/test_torch_cuda_paths.py holds 1e-12 there on the
+# card).  A P-fold or 1/P-fold gradient, or one missing the other ranks'
+# rays, is off by O(1).
 GRAD_SHARD_REL = 1e-8
 
 

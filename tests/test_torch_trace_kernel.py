@@ -51,9 +51,11 @@ def deviations(request, chief):
     return dp.contiguous(), dd.contiguous()
 
 
-def _consts(consts64):
-    (Ms, bvecs, Ds, Dns, Ts, A, Bp, rho, gC, gA, br, Ps) = consts64
-    return (Ms, gC, gA, Ds, Dns, Ts, A, Bp, rho, br, bvecs)
+def _akbx_consts(c):
+    """akbx's ``pack_consts`` arguments, in its order, from the port's
+    chief constants."""
+    return (c.M, c.gC, c.gA, c.D, c.Dn, c.T, c.A, c.Bp, c.rho, c.branch,
+            c.bvec)
 
 
 def _assert_planes(t_pairs, j_pairs):
@@ -68,9 +70,9 @@ def _assert_planes(t_pairs, j_pairs):
 
 
 def test_pack_consts_bit_identical(chief):
-    args = _consts(chief[4])
-    t = ttk.pack_consts(*args)
-    j = jtk.pack_consts(*[jnp.asarray(a.numpy()) for a in args])
+    t = ttk.pack_consts(chief[4])
+    j = jtk.pack_consts(*[jnp.asarray(a.numpy())
+                          for a in _akbx_consts(chief[4])])
     np.testing.assert_array_equal(t.numpy(), np.asarray(j))
 
 
@@ -87,7 +89,7 @@ def test_pack_det_consts_bit_identical(chief):
 
 @pytest.fixture(scope="module")
 def k1_outputs(chief, deviations):
-    consts = ttk.pack_consts(*_consts(chief[4]))
+    consts = ttk.pack_consts(chief[4])
     dp, dd = deviations
     t = ttk.trace_deviation_reference(consts, dp, dd, N_MIRR)
     j = jtk.trace_deviation_reference(jnp.asarray(consts.numpy()),
@@ -108,7 +110,7 @@ def test_detector_twin_matches_akbx(chief, k1_outputs):
     """The port's K2 twin takes both detector planes in one call; akbx
     calls its twin once per plane."""
     t1, _ = k1_outputs
-    Dns = chief[4][3]
+    Dns = chief[4].Dn
     rng = np.random.default_rng(5)
     R = torch.from_numpy(np.linalg.qr(rng.normal(size=(3, 3)))[0])
     rows = [(torch.tensor(v, dtype=torch.float64) for v in pair)
@@ -129,7 +131,7 @@ def test_detector_twin_matches_akbx(chief, k1_outputs):
 def test_wrappers_take_the_twin_on_cpu(chief, deviations):
     """On CPU tensors the wrappers return the twins' results and launch
     nothing."""
-    consts = ttk.pack_consts(*_consts(chief[4]))
+    consts = ttk.pack_consts(chief[4])
     dp, dd = deviations
     before = (ttk.trace_deviation.launches, ttk.detector.launches)
     a = ttk.trace_deviation(consts, dp, dd, N_MIRR)
@@ -145,7 +147,7 @@ def test_wrappers_take_the_twin_on_cpu(chief, deviations):
 
 
 def test_wrappers_reject_other_devices(chief):
-    consts = ttk.pack_consts(*_consts(chief[4])).to("meta")
+    consts = ttk.pack_consts(chief[4]).to("meta")
     d = torch.zeros(3, 8, dtype=torch.float64, device="meta")
     with pytest.raises(ValueError):
         ttk.trace_deviation(consts, d, d, N_MIRR)

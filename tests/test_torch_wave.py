@@ -207,13 +207,14 @@ def test_grad_through_k3_matches_akbx_and_f64(inputs, names):
                                    err_msg=name)
 
 
-TARGETS_GRAD_BAR = 5e-5  # chip_smoke.py's [8] bar for the targets
+TARGETS_GRAD_BAR = 5e-5  # the card test's bar for the targets
 
 
 def test_targets_grad_at_512x384_as_akbx_own_kernel():
     """The targets gradient through a df32 forward at 512 sources x 384
-    targets, the inputs of chip_smoke.py's [8]: Re(conj(u) du/dt) cancels
-    its leading -ik|u|^2 term, so the forward's ~1e-7 error grows there.
+    targets, the inputs of the card's test of the gradient through K3
+    (tests/test_torch_cuda.py): Re(conj(u) du/dt) cancels its leading
+    -ik|u|^2 term, so the forward's ~1e-7 error grows there.
     akbx's own kernel misses 2e-5 of the scale on these inputs; the port's
     twin and akbx's kernel both hold TARGETS_GRAD_BAR against their own
     f64 paths.  Run with -s to print the two readings."""

@@ -43,6 +43,19 @@ def _t(x):
     return torch.as_tensor(np.asarray(x), dtype=torch.float64)
 
 
+def cloud(dev, n, m, seed):
+    """A seeded field of ``m`` sources near 145 m and ``n`` targets near
+    146 m (akbx's kernel tests, tests/test_kernels.py::_mk): (WaveField,
+    targets (3, n) f64)."""
+    rng = np.random.default_rng(seed)
+    src = np.array([145.0, 0.02, 0.0])[:, None] + rng.normal(size=(3, m)) * 0.05
+    tgt = np.array([146.0, 0.05, 0.01])[:, None] + rng.normal(size=(3, n)) * 0.02
+    u = rng.normal(size=m) + 1j * rng.normal(size=m)
+    ds = np.abs(rng.normal(size=m)) * 1e-8
+    return (WaveField.from_complex(src, u, ds, device=dev),
+            torch.tensor(tgt, device=dev))
+
+
 def loss_fn_for(mesh):
     """akbx's train-step test loss: the squared demeaned OPL, summed."""
     def loss_fn(sys_, res):
